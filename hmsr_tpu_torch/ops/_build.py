@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use (never at import), into ``build/hmsr_kernels/`` at the root of
+the checkout, which ``.gitignore`` lists; the library's file name carries a
+hash of the sources and flags, so an edited source is rebuilt. Without
+``--use_fast_math``: parity with the plain versions needs IEEE ``expf`` and
+division. With ``-fmad=false``: every multiply and add rounds once, as the
+plain versions' elementwise torch ops do; a contracted FMA changes the merge
+weights' quadratic form ``d^T Omega^-1 d`` and the covariance determinant,
+both differences of large terms for anisotropic kernels, by more than the
+1e-5 the kernels are held to.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hmsr_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: argtypes of every C entry point (pointers and the stream as c_void_p).
+SIGNATURES = {
+    "hmsr_block_match": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
+                         _I, _P, _P],
+    "hmsr_ica_step": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    "hmsr_ica_fused": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _P, _P],
+    "hmsr_upscale_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "hmsr_merge": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _P],
+}
+
+_lib = None
+build_seconds = None
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return path
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"libhmsr_kernels_{h.hexdigest()[:16]}.so")
+    t0 = time.perf_counter()
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[s for s in srcs if s.endswith(".cu")]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_seconds = time.perf_counter() - t0
+    _lib = lib
+    return lib
+
+
+def check(code, name):
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_of(t):
+    """The current CUDA stream of tensor ``t``'s device, as a pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_arg(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_f32(name, t, ndim, device):
+    check_arg(t.dtype == torch.float32, f"{name}: expected float32, got {t.dtype}")
+    check_arg(t.dim() == ndim, f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
+    check_arg(t.device == device, f"{name}: on {t.device}, expected {device}")
+
+
+def require_cuda(device):
+    """Wrappers run their kernel only on CUDA tensors; anything that is
+    neither CPU nor CUDA is refused."""
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")

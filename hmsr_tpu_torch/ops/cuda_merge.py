@@ -1,0 +1,198 @@
+"""K5 (merge accumulation of one frame): CUDA kernel wrapper and its plain
+PyTorch version.
+
+Counterpart of :mod:`hmsr_tpu.ops.pallas_merge` (per-frame form). The
+kernel is ``csrc/merge.cu`` (replaces ``pallas_merge.py:_merge_group_kernel``);
+its header says what bounds it on the H100 and how the design answers it.
+The accumulators keep the plain ``(3, H*s, W*s)`` shape (the TPU's
+``padded_accum_shape`` is a tiling artefact) and are updated in place. The
+wrapper launches the kernel for CUDA tensors and runs the plain version only
+for CPU tensors; ``merge_accumulate.launches`` counts kernel launches.
+"""
+
+import numpy as np
+import torch
+
+from . import _build
+from ..utils.types import DEFAULT_FLOAT
+
+
+def _cov_at(cv, i, j):
+    """``cv[i, j]`` with merge_tiled's covariance padding: index -1 holds the
+    linear extrapolation ``2 c[0] - c[1]`` (rows first, then columns),
+    indices beyond it the edge values."""
+    gh, gw = cv.shape
+
+    def row(ii, jj):
+        jc = jj.clamp(0, gw - 1)
+        ext = 2.0 * cv[0, jc] - cv[min(1, gh - 1), jc]
+        return torch.where(ii == -1, ext, cv[ii.clamp(0, gh - 1), jc])
+
+    zero = torch.zeros_like(j)
+    col_ext = 2.0 * row(i, zero) - row(i, zero + min(1, gw - 1))
+    return torch.where(j == -1, col_ext, row(i, j))
+
+
+def tap_weight(ixx, ixy, iyy, dist_x, dist_y):
+    """Kernel weight ``exp(-1/2 d^T Omega^-1 d)`` of a tap at distance
+    (dist_x, dist_y), the quadratic form clamped at 0."""
+    z = ixx * dist_x * dist_x + 2.0 * ixy * dist_x * dist_y + iyy * dist_y * dist_y
+    return torch.exp(-0.5 * torch.clamp(z, min=0.0))
+
+
+def accumulate_tap(vals, accs, w, c, i, j, cfa):
+    """Add ``w * c`` to ``vals`` and ``w`` to ``accs`` (per-channel lists)
+    in the CFA channel of raw pixel (i, j); ``cfa``: (2, 2) int array."""
+    pi, pj = torch.remainder(i, 2), torch.remainder(j, 2)
+    ch = torch.where(pi == 0,
+                     torch.where(pj == 0, int(cfa[0, 0]), int(cfa[0, 1])),
+                     torch.where(pj == 0, int(cfa[1, 0]), int(cfa[1, 1])))
+    for k in range(len(vals)):
+        mask = (ch == k).to(DEFAULT_FLOAT)
+        vals[k] = vals[k] + w * c * mask
+        accs[k] = accs[k] + w * mask
+
+
+def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
+                scale):
+    """Plain version of K5: the semantics of
+    :func:`hmsr_tpu.models.merge_tiled.merge_tiled` (Bayer, steerable kernel,
+    integer scale) written per HR pixel, evaluated in bands of HR rows and
+    accumulated into ``num``/``den`` in place. Returns ``(num, den)``.
+    """
+    s, Ts = int(scale), int(tile_size)
+    g = 2
+    cfa = np.asarray(cfa_pattern, dtype=np.int64)
+    H, W = comp_img.shape
+    gh, gw = covs.shape[1:]
+    n_ch, out_h, out_w = num.shape
+    B = Ts * s
+    band_rows = 8 * B           # bounds the per-band temporaries
+    dev = comp_img.device
+    WIN, CWIN = Ts + 4, Ts // g + 4
+    PAD, CPAD = WIN + 1, CWIN + 1
+    sg = s * g
+    C = torch.arange(out_w, device=dev)[None, :]
+    tx = C // B
+
+    def floordiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    for y0 in range(0, out_h, band_rows):
+        y1 = min(y0 + band_rows, out_h)
+        R = torch.arange(y0, y1, device=dev)[:, None]
+        ty = R // B
+        rl_y, rl_x = R - ty * B, C - tx * B
+        fx = flow[ty, tx, 0].to(DEFAULT_FLOAT)
+        fy = flow[ty, tx, 1].to(DEFAULT_FLOAT)
+
+        def window(f, t, rl, period, shift, n, win, pad):
+            base = t * B + torch.floor(0.5 + s * f - shift).long()
+            S = floordiv(base, period) - 1
+            ph = base - period * (S + 1)
+            Sc = torch.clamp(S, -pad, n + pad - win)
+            return S, Sc, floordiv(rl + ph, period)
+
+        Sy, Syc, q_y = window(fy, ty, rl_y, s, 0.0, H, WIN, PAD)
+        Sx, Sxc, q_x = window(fx, tx, rl_x, s, 0.0, W, WIN, PAD)
+        ok_tile = (Syc == Sy) & (Sxc == Sx)
+        center_i, center_j = Sy + 1 + q_y, Sx + 1 + q_x
+
+        lr_mov_y = (R.to(DEFAULT_FLOAT) + 0.5) / s + fy
+        lr_mov_x = (C.to(DEFAULT_FLOAT) + 0.5) / s + fx
+        inb_center = (lr_mov_y >= 0) & (lr_mov_y < H) & (lr_mov_x >= 0) & \
+            (lr_mov_x < W) & ok_tile
+        local_r = r[torch.clamp(R // s, max=H - 1), torch.clamp(C // s, max=W - 1)]
+
+        S2y, S2yc, q2_y = window(fy, ty, rl_y, sg, 0.5 * sg, gh, CWIN, CPAD)
+        S2x, S2xc, q2_x = window(fx, tx, rl_x, sg, 0.5 * sg, gw, CWIN, CPAD)
+        frac_y = (lr_mov_y / g - 0.5) - (S2y + 1 + q2_y).to(DEFAULT_FLOAT)
+        frac_x = (lr_mov_x / g - 0.5) - (S2x + 1 + q2_x).to(DEFAULT_FLOAT)
+        ci, cj = S2yc + 1 + q2_y, S2xc + 1 + q2_x
+        cc = []
+        for k in range(3):
+            c00 = _cov_at(covs[k], ci, cj)
+            c01 = _cov_at(covs[k], ci, cj + 1)
+            c10 = _cov_at(covs[k], ci + 1, cj)
+            c11 = _cov_at(covs[k], ci + 1, cj + 1)
+            top = c00 + frac_x * (c01 - c00)
+            bot = c10 + frac_x * (c11 - c10)
+            cc.append(top + frac_y * (bot - top))
+        det = cc[0] * cc[2] - cc[1] * cc[1]
+        inv_det = 1.0 / det
+        ixx = inv_det * cc[2]
+        ixy = -inv_det * cc[1]
+        iyy = inv_det * cc[0]
+
+        dist_ref_y = lr_mov_y - 0.5
+        dist_ref_x = lr_mov_x - 0.5
+        wr = torch.where(inb_center, local_r, torch.zeros((), device=dev))
+        vals = [0.0] * n_ch
+        accs = [0.0] * n_ch
+        for di in (-1, 0, 1):
+            i_g = center_i + di
+            inb_i = (i_g >= 0) & (i_g < H)
+            dist_y = i_g.to(DEFAULT_FLOAT) - dist_ref_y
+            vy = Syc + 1 + di + q_y
+            for dj in (-1, 0, 1):
+                j_g = center_j + dj
+                inb = inb_i & (j_g >= 0) & (j_g < W)
+                dist_x = j_g.to(DEFAULT_FLOAT) - dist_ref_x
+                vx = Sxc + 1 + dj + q_x
+                in_frame = (vy >= 0) & (vy < H) & (vx >= 0) & (vx < W)
+                c = torch.where(in_frame,
+                                comp_img[vy.clamp(0, H - 1), vx.clamp(0, W - 1)],
+                                torch.zeros((), device=dev))
+                w = tap_weight(ixx, ixy, iyy, dist_x, dist_y) * wr * inb
+                accumulate_tap(vals, accs, w, c, i_g, j_g, cfa)
+        num[:, y0:y1] += torch.stack(vals, 0)
+        den[:, y0:y1] += torch.stack(accs, 0)
+    return num, den
+
+
+def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
+                     tile_size, scale):
+    """K5: accumulate one Bayer frame into ``num``/``den`` (3, H*s, W*s) in
+    place; returns ``(num, den)``.
+
+    ``comp_img``: (H, W); ``flow``: (ny, nx, 2) per raw Ts-tile;
+    ``covs``: (3, gh, gw) on the grey grid; ``r``: (H, W) robustness; all
+    contiguous float32 on one device. Integer ``scale`` only.
+    """
+    Ts, s = int(tile_size), int(scale)
+    dev = comp_img.device
+    for name, t, nd in (("comp_img", comp_img, 2), ("flow", flow, 3),
+                        ("covs", covs, 3), ("r", r, 2), ("num", num, 3),
+                        ("den", den, 3)):
+        _build.check_f32(name, t, nd, dev)
+    H, W = comp_img.shape
+    out_h, out_w = num.shape[1:]
+    _build.check_arg(s == scale and s >= 1, f"integer scale required, got {scale}")
+    _build.check_arg(tuple(num.shape) == (3, H * s, W * s) == tuple(den.shape),
+                     f"accumulators {tuple(num.shape)}, {tuple(den.shape)} "
+                     f"for a {(H, W)} frame at scale {s}")
+    _build.check_arg(tuple(r.shape) == (H, W) and covs.shape[0] == 3,
+                     f"r {tuple(r.shape)}, covs {tuple(covs.shape)}")
+    _build.check_arg(flow.shape[0] >= -(-H // Ts) and flow.shape[1] >= -(-W // Ts)
+                     and flow.shape[2] == 2,
+                     f"flow {tuple(flow.shape)} does not cover {(H, W)} at Ts={Ts}")
+    _build.check_arg(Ts % 2 == 0, f"tile size {Ts} must be even")
+    if dev.type == "cpu":
+        return merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, Ts, s)
+    _build.require_cuda(dev)
+    _build.check_arg(all(t.is_contiguous() for t in (comp_img, flow, covs, r, num, den)),
+                     "merge inputs must be contiguous")
+    cfa = [int(v) for v in np.asarray(cfa_pattern).reshape(-1)]
+    _build.check_arg(len(cfa) == 4 and all(0 <= v < 3 for v in cfa),
+                     f"bad CFA pattern {cfa}")
+    lib = _build.library()
+    code = lib.hmsr_merge(
+        _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1], _build.ptr(covs), covs.shape[1], covs.shape[2],
+        _build.ptr(r), _build.ptr(num), _build.ptr(den), out_h, out_w, Ts, s,
+        *cfa, _build.stream_of(comp_img))
+    _build.check(code, "hmsr_merge")
+    merge_accumulate.launches += 1
+    return num, den
+
+
+merge_accumulate.launches = 0

@@ -1,0 +1,161 @@
+"""Per-stage and per-kernel device time of one warm burst of the main path.
+
+Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
+
+    python3 -m hmsr_tpu_torch.profile_burst [--height 3000 --width 4000
+        --frames 20 --seed 0 --out profile.txt]
+
+It makes the ``bench.py`` headline burst on the card
+(:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline once to warm up, once
+unprofiled (wall seconds), and once under ``torch.profiler`` with a
+``record_function`` range around every stage call of
+:mod:`hmsr_tpu_torch.models.pipeline`. It prints, for the profiled run:
+
+- its wall seconds, and the kernel-only device time: the self device time
+  of every CUDA kernel row, annotations excluded; the busy share is that
+  over the same run's wall time;
+- per stage: calls, and the device time of the kernels launched inside
+  its range. Torch's kernels are found through the host ops that launch
+  them (so the GPU-side copy of each range is not counted again). The
+  hand-written kernels are launched through ctypes, outside the profiler's
+  op tree: each is added to the stage that launches it (:data:`LAUNCHED_BY`),
+  K4's time split between its two stages by launch count;
+- the device time and launches of each hand-written kernel, and the
+  heaviest device rows.
+
+The table goes to stdout, and also to ``--out`` when it is given.
+"""
+
+import argparse
+import os
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from .models import pipeline as P
+from .synthetic import CFA_RGGB, WB, affine_curves, burst_config, burst_snr, make_burst
+
+STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
+          "compute_robustness", "estimate_kernels", "merge_tiled",
+          "merge_ref_tiled", "normalize_accum")
+HAND_WRITTEN = ("bm_kernel", "ica_step_kernel", "ica_fused_kernel", "warp_kernel",
+                "merge_kernel")
+#: stage -> (hand-written kernel, its launches per burst from that stage);
+#: None stands for "every launch of the burst".
+LAUNCHED_BY = {
+    "align": (("bm_kernel", None), ("ica_step_kernel", None), ("ica_fused_kernel", None)),
+    "compute_robustness": (("warp_kernel", "n_cmp"),),
+    "init_robustness": (("warp_kernel", 2),),
+    "merge_tiled": (("merge_kernel", None),),
+}
+
+
+def _instrument():
+    """Wrap each stage function the pipeline calls in a named range."""
+    for name in STAGES:
+        fn = getattr(P, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            with record_function("stage::" + _name):
+                return _fn(*a, **k)
+        setattr(P, name, wrapped)
+
+
+def _self_device_us(e):
+    t = getattr(e, "self_device_time_total", None)
+    return e.self_cuda_time_total if t is None else t
+
+
+def _kernel_us(e):
+    """Device time of the kernels launched under host event ``e``."""
+    return (sum(k.duration for k in e.kernels if not k.name.startswith("stage::"))
+            + sum(_kernel_us(c) for c in e.cpu_children))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--height", type=int, default=3000)
+    ap.add_argument("--width", type=int, default=4000)
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the table here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_burst needs a CUDA card")
+    dev = "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+
+    _instrument()
+    frames = make_burst(args.height, args.width, args.frames, args.seed, dev)
+    std, diff = affine_curves()
+    config = burst_config((args.height, args.width), burst_snr(frames[0], std))
+    pipe = P.make_pipeline(config, CFA_RGGB, WB, dev)
+    run_args = (frames[0], frames[1:], torch.as_tensor(std, device=dev),
+                torch.as_tensor(diff, device=dev))
+
+    pipe(*run_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe(*run_args)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(*run_args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("stage::")]
+    busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    stages = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("stage::"):
+            n, us = stages.get(e.name[len("stage::"):], (0, 0.0))
+            stages[e.name[len("stage::"):]] = (n + 1, us + _kernel_us(e))
+    ours = {name: (0.0, 0) for name in HAND_WRITTEN}
+    for e in kernels:
+        base = e.key.split("(")[0]
+        if base in ours:
+            ms, n = ours[base]
+            ours[base] = (ms + _self_device_us(e) / 1e3, n + e.count)
+    for stage, launched in LAUNCHED_BY.items():
+        for kname, n_from in launched:
+            ms, n = ours[kname]
+            share = 1.0 if n_from is None else \
+                (args.frames - 1 if n_from == "n_cmp" else n_from) / max(n, 1)
+            calls, us = stages.get(stage, (0, 0.0))
+            stages[stage] = (calls, us + 1e3 * ms * share)
+    lines = [smi,
+             f"burst {args.frames}x{args.height}x{args.width} x{config.scale}, Ts="
+             f"{config.block_matching.tuning.tile_size}",
+             f"unprofiled warm run: {plain_wall:.4f} s",
+             f"profiled run: wall {wall:.4f} s, kernel-only device time "
+             f"{busy_ms:.2f} ms over {n_launch} launches, busy share "
+             f"{busy_ms / (wall * 1e3):.3f} of the profiled wall",
+             "stages (calls, device ms of the kernels inside the range):"]
+    lines += [f"  {name:20s} {n:5d} {us / 1e3:10.2f}"
+              for name, (n, us) in sorted(stages.items(), key=lambda kv: -kv[1][1])]
+    lines.append(f"  {'(sum of stages)':20s}       "
+                 f"{sum(us for _, us in stages.values()) / 1e3:10.2f}")
+    lines.append("hand-written kernels (device ms, launches):")
+    lines += [f"  {k:20s} {ms:10.2f} {n:6d}" for k, (ms, n) in ours.items()]
+    lines.append("heaviest device rows (self device ms, calls):")
+    for e in sorted(kernels, key=lambda e: -_self_device_us(e))[:30]:
+        lines.append(f"  {e.key[:80]:80s} {_self_device_us(e) / 1e3:9.2f} {e.count:6d}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    print("\n".join(lines), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,164 @@
+"""The port's scan pipeline end to end against the JAX package's, and the
+port's boundaries (no JAX, no hidden CPU fallback, no silent path swap).
+
+E2E criteria (tools/verify_e2e_parity.py): flow max|d| < 1e-2, image
+mean|d| < 1e-4 and max|d| < 1e-3 on the interior [8:-8, 8:-8].
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from torch_port_helpers import WB, curves, default_config, kernel_counts, n, small_config  # noqa: E402,E501
+
+from hmsr_tpu.io.synthetic import DEFAULT_CFA, make_synthetic_burst  # noqa: E402
+from hmsr_tpu.models.pipeline import make_pipeline as j_make_pipeline  # noqa: E402
+from hmsr_tpu_torch.models.pipeline import make_pipeline  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("cfg", ["128-ts16", "128-ts32", "256-default"])
+def test_e2e_against_jax_scan(cfg):
+    if cfg == "256-default":
+        size, config = 256, default_config(256)       # 4 levels, Ts=16
+    else:
+        size, config = 128, small_config(128, int(cfg[-2:]))
+    config.debug = True
+    ref, comps, _, _ = make_synthetic_burst(size, size, n_frames=4, seed=0)
+    std, diff = curves()
+    img_j, dbg_j = j_make_pipeline(config, DEFAULT_CFA, WB)(
+        jnp.asarray(ref), jnp.asarray(comps), jnp.asarray(std), jnp.asarray(diff))
+    img_t, dbg_t = make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std, diff)
+
+    assert tuple(img_t.shape) == (2 * size, 2 * size, 3)
+    d_flow = np.abs(n(dbg_t["flow"]) - np.asarray(dbg_j["flow"]))
+    d_img = np.abs(n(img_t) - np.asarray(img_j))[8:-8, 8:-8]
+    assert d_flow.max() < 1e-2
+    assert d_img.mean() < 1e-4
+    assert d_img.max() < 1e-3
+    assert np.abs(n(dbg_t["robustness"]) - np.asarray(dbg_j["robustness"])).max() < 1e-3
+    assert kernel_counts() == (0,) * 5     # CPU tensors: plain versions only
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter: import the port and run the 128^2 slice on
+    the CPU with the port's own configuration and burst; neither JAX nor the
+    JAX package may be loaded."""
+    code = (
+        "import sys, numpy as np\n"
+        "import hmsr_tpu_torch\n"
+        "from hmsr_tpu_torch.models.pipeline import make_pipeline\n"
+        "from hmsr_tpu_torch import configs, convert, synthetic as syn\n"
+        "frames = syn.make_burst(128, 128, 3, 0, 'cpu')\n"
+        "std, diff = syn.affine_curves()\n"
+        "config = configs.default_config()\n"
+        "config.scale = 2\n"
+        "config.noise_model.update(alpha=syn.ALPHA, beta=syn.BETA)\n"
+        "config.block_matching.tuning.update(factors=[1, 2], tile_size_factors=[1, 1],\n"
+        "    search_radii=[1, 4], metrics=['L1', 'L2'])\n"
+        "configs.update_snr_config(config, 40)\n"
+        "configs.sanitize_config(config, (128, 128))\n"
+        "img, _ = make_pipeline(config, syn.CFA_RGGB, syn.WB, 'cpu')"
+        "(frames[0], frames[1:], std, diff)\n"
+        "assert tuple(img.shape) == (256, 256, 3)\n"
+        "assert bool(np.isfinite(img[8:-8, 8:-8].numpy()).all())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hmsr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('NOJAX-OK')\n")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "NOJAX-OK" in res.stdout
+
+
+def test_chip_smoke_imports_no_reference():
+    """chip_smoke.py's imports load neither JAX nor the JAX package, and
+    its own check of that passes."""
+    code = ("import sys, chip_smoke\n"
+            "chip_smoke.check_no_reference_imports()\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'hmsr_tpu')]\n"
+            "print('NOREF-OK')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "NOREF-OK" in res.stdout
+
+
+@pytest.mark.parametrize("snr", [5.0, 14.0, 18.0, 22.5, 40.0])
+def test_port_config_matches_jax(snr):
+    """The port's configuration tree, SNR resolution and validation give the
+    JAX package's values (its ``tpu:`` switches aside)."""
+    from hmsr_tpu import configs as j_configs
+    from hmsr_tpu_torch import configs
+    port, ref = configs.default_config(), j_configs.default_config()
+    ref.pop("tpu")
+    assert port == ref
+    for c, mod in ((port, configs), (ref, j_configs)):
+        mod.update_snr_config(c, snr)
+        mod.sanitize_config(c, (3000, 4000))
+    assert port == ref
+    for c, mod in ((port, configs), (ref, j_configs)):
+        c.ica.tuning.n_iter = 0
+        with pytest.raises((AssertionError, ValueError)):
+            mod.sanitize_config(c, (3000, 4000))
+    tiny = configs.update_snr_config(configs.default_config(), snr)
+    with pytest.raises(ValueError):
+        configs.sanitize_config(tiny, (64, 64))
+
+
+def test_synthetic_burst():
+    """The port's burst maker: seeded, frame 0 unshifted, values in [0, 1],
+    and its analytic curves equal the test helpers'."""
+    from hmsr_tpu_torch import synthetic
+    a = synthetic.make_burst(64, 96, 3, 7, "cpu")
+    b = synthetic.make_burst(64, 96, 3, 7, "cpu")
+    assert tuple(a.shape) == (3, 64, 96) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
+    for got, want in zip(synthetic.affine_curves(), curves()):
+        np.testing.assert_array_equal(got, want)
+    assert synthetic.burst_config((3000, 4000), 51.9).block_matching.tuning.tile_size == 16
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError):
+        make_pipeline(small_config(128), DEFAULT_CFA, WB, "cuda")
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("change", ["decimating", "scale1.5", "acc_rob", "grey_mode",
+                                    "fused_pipeline", "iso_kernel"])
+def test_unported_configurations_raise(change):
+    config = small_config(128)
+    if change == "decimating":
+        config.grey_method = "decimating"
+    elif change == "scale1.5":
+        config.scale = 1.5
+    elif change == "acc_rob":
+        config.accumulated_robustness_denoiser.enabled = True
+    elif change == "grey_mode":
+        config.mode = "grey"
+    elif change == "fused_pipeline":
+        config.tpu.pipeline = "fused"
+    else:
+        config.merging.kernel = "iso"
+    with pytest.raises(NotImplementedError):
+        make_pipeline(config, DEFAULT_CFA, WB, "cpu")
