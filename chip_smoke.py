@@ -5,23 +5,34 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
     python3 chip_smoke.py
 
-Phases, each printing one result line (any failure raises: non-zero exit
-and no final ``ok`` line):
+Phases, each printing its result lines (any failure raises: non-zero exit
+and no final ``ok`` line); every line with a time carries the card's name
+and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the five kernels (K1 block matching, K2 ICA step, K3 fused ICA,
-   K4 upscale-warp, K5 merge) from ``hmsr_tpu_torch/csrc`` and print the
-   build seconds;
+1. build the six kernels (K1 block matching, K2 ICA step, K3 fused ICA,
+   K4 upscale-warp, K5 merge, K5' burst-fused merge) from
+   ``hmsr_tpu_torch/csrc`` and print the build seconds;
 2. each kernel against its plain PyTorch version on the card, on seeded
-   inputs at the main path's shapes (20x12 MP burst, x2, Ts=16; alignment
-   levels also at Ts=32): max|d| and the median time of both (CUDA events);
-3. the slice on the card against the slice on the CPU (512x512, 8 frames,
-   default 4-level tuning, Ts=16): flow max|d| < 1e-2, image mean|d| < 1e-4
-   and max|d| < 1e-3 on the interior;
-4. the full main path: a 20-frame 3000x4000 Bayer burst made on the card
+   inputs at the main path's shapes (20x12 MP burst, x2): the alignment
+   levels at Ts=16, 32 and 64, K4, K5 and K5' (5 frames) at Ts=16, 32 and
+   64, K5' also against 5 K5 launches (bit for bit); max|d|, the median
+   time of kernel and plain version (CUDA events) and the bound;
+3. the 512x512 8-frame slice on the card against the slice on the CPU, in
+   the scan and the chunked form (chunks of 3: the last one shorter): flow
+   max|d| < 1e-2, image mean|d| < 1e-4 and max|d| < 1e-3 on the interior;
+   chunked equal to scan on the card;
+4. the scan pipeline on a 20-frame 3000x4000 Bayer burst made on the card
    from a seed, x2, warm-up + 3 timed runs; kernel launch counts of every
-   run asserted against what the path implies; finite interior.
+   run asserted against what the path implies; finite interior;
+5. ``process_arrays`` on the same burst (Monte-Carlo noise curves on the
+   card, device finishing), scan and chunked (chunks of 5), warm-up + 3
+   timed runs each, launch counts of every run asserted; the two images
+   equal; shape, finite interior, peak memory;
+6. the dark cells through ``process_arrays`` (scan): bursts of brightness
+   0.07 and 0.02, which must resolve Ts=32 and Ts=64 from their SNR;
+   launch counts asserted, finite interior, times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports neither
@@ -37,15 +48,17 @@ import time
 import numpy as np
 import torch
 
+from hmsr_tpu_torch import configs
 from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_sizes,
                                              init_alignment)
 from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.pipeline import make_pipeline
+from hmsr_tpu_torch.models.process import process_arrays
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_warp
 from hmsr_tpu_torch.ops.grey import compute_grey_image
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
-from hmsr_tpu_torch.synthetic import (CFA_RGGB, WB, affine_curves, burst_config,
-                                      burst_snr, make_burst)
+from hmsr_tpu_torch.synthetic import (ALPHA, BETA, CFA_RGGB, WB, affine_curves,
+                                      burst_config, burst_snr, make_burst)
 
 KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K1": ("K1 block matching", cuda_ica.block_match, "hmsr_tpu_torch/csrc/bm.cu",
@@ -59,7 +72,23 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
            "hmsr_tpu_torch/csrc/warp.cu", "hmsr_tpu/ops/pallas_warp.py:279"),
     "K5": ("K5 merge accumulation", cuda_merge.merge_accumulate,
            "hmsr_tpu_torch/csrc/merge.cu", "hmsr_tpu/ops/pallas_merge.py:641"),
+    "K5'": ("K5' burst-fused merge accumulation (chunk of frames)",
+            cuda_merge.merge_burst_accumulate, "hmsr_tpu_torch/csrc/merge_burst.cu",
+            "hmsr_tpu/ops/pallas_merge.py:302"),
 }
+MAIN_TS = 16            # the bright main path's tile size
+CHUNK = 5               # tpu.merge_chunk of the chunked path
+#: launches per bright 20-frame burst, scan and chunked (chunks of 5)
+BRIGHT_LAUNCHES = {
+    "scan": {"K1": 76, "K2": 114, "K3": 38, "K4": 21, "K5": 19, "K5'": 0},
+    "chunked": {"K1": 76, "K2": 114, "K3": 38, "K4": 21, "K5": 0, "K5'": 4}}
+#: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
+#: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
+#: hold 19 robustness maps and covariance sets, ~1.6 GB)
+MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0}
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+CARD = ""               # nvidia-smi name and power limit, set in main()
 
 
 def log(*a):
@@ -88,6 +117,13 @@ def timed(fn, n=5):
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` of device memory and do ``flops`` float32 operations."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
 def reset_counts():
     for _, fn, _, _ in KERNELS.values():
         fn.launches = 0
@@ -95,6 +131,13 @@ def reset_counts():
 
 def counts():
     return {key: k[1].launches for key, k in KERNELS.items()}
+
+
+def check_counts(got, expect, what):
+    """Counts equal to what the path implies, and every kernel of the path
+    launched at least once."""
+    if got != expect or not all(got[k] for k, v in expect.items() if v):
+        raise AssertionError(f"{what}: kernel launch counts {got}, expected {expect}")
 
 
 def nan_max_abs(a, b):
@@ -106,6 +149,15 @@ def nan_max_abs(a, b):
     return float((a[fa] - b[fa]).abs().max()) if fa.any() else 0.0
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def plain_text(ms):
+    """The plain version's time, which is taken at the main path's Ts only."""
+    return "not timed" if ms != ms else f"{ms:.4f} ms"
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -115,12 +167,18 @@ def blocky_scene(rng, h, w, block=8):
     return np.kron(base, np.ones((block, block), np.float32))[:h, :w]
 
 
+def record(stats, key, Ts, per_frame, err, ms, plain_ms, bnd):
+    stats[key].append(dict(Ts=Ts, per_frame=per_frame, err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1]))
+
+
 def check_alignment_kernels(device, grey_shape, snr, rng, stats):
     """K1, K2 and K3 on every pyramid level of one configuration. Entries
     record whether the main path at this configuration launches the kernel
     on the level (K2 n_iter times)."""
     h, w = grey_shape
     config = burst_config(grey_shape, snr)
+    Ts = config.block_matching.tuning.tile_size
     n_iter = config.ica.tuning.n_iter
     scene = blocky_scene(rng, h + 8, w + 8)
     ref = scene[:h, :w] + 0.01 * rng.randn(h, w).astype(np.float32)
@@ -132,6 +190,7 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         tiles, lvl, ica = state.tiles[l], state.pyramid[l], state.ica[l]
         mov_lvl = mov_pyr[l].contiguous()
         ny, nx = tiles.shape[:2]
+        n_px = ny * nx * ts * ts
         fused = ny * nx < FUSED_GN_MAX_TILES
         fused_bm = fused and metric == "L1" and radius == 1
         # integer, half-integer (round-half-even ties) and fractional flows
@@ -141,7 +200,7 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         flow = torch.as_tensor(fl, device=device)
         if metric == "L1":
             flow = torch.round(flow)
-        key = f"ts{ts} r{radius} {metric} tiles {ny}x{nx}"
+        key = f"Ts={Ts} level {l}: ts{ts} r{radius} {metric} tiles {ny}x{nx}"
 
         d_k = cuda_ica.block_match(tiles, mov_lvl, flow, ts, radius, metric)
         d_p = cuda_ica.block_match_plain(tiles, mov_lvl, flow, ts, radius, metric)
@@ -150,12 +209,14 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
                                                   radius, metric))
         ms_p = timed(lambda: cuda_ica.block_match_plain(tiles, mov_lvl, flow, ts,
                                                         radius, metric), n=3)
-        log(f"  K1 {key}: displacements differing {n_diff}, "
-            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+        # each candidate: L1 sub, abs, add; L2 two multiplies, two adds
+        bnd = bound(nbytes(tiles, mov_lvl, flow, d_k),
+                    n_px * (2 * radius + 1) ** 2 * (3 if metric == "L1" else 4))
+        log(f"  K1 {key}: displacements differing {n_diff}, kernel {ms_k:.4f} ms, "
+            f"plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
         if n_diff:
             raise AssertionError(f"K1 {key}: {n_diff} displacements differ")
-        stats["K1"].append(dict(err=0.0, ms=ms_k, plain_ms=ms_p, snr=snr,
-                                per_frame=0 if fused_bm else 1))
+        record(stats, "K1", Ts, 0 if fused_bm else 1, 0.0, ms_k, ms_p, bnd)
 
         fl2 = flow + torch.as_tensor(rng.uniform(-0.99, 0.99, (ny, nx, 2)).astype(
             np.float32), device=device)
@@ -167,12 +228,14 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
                                                mov_lvl, fl2, ts))
         ms_p = timed(lambda: cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady,
                                                      mov_lvl, fl2, ts))
-        log(f"  K2 {key}: max|d| {err:.3e} (rel {rel:.3e}), "
-            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+        # per tile pixel: 3 bilinear lerps (9), the residual (1), 2 products
+        # and 2 sums
+        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, mov_lvl, fl2, b_k), n_px * 14)
+        log(f"  K2 {key}: max|d| {err:.3e} (rel {rel:.3e}), kernel {ms_k:.4f} ms, "
+            f"plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
         if not rel <= 1e-4:
             raise AssertionError(f"K2 {key}: relative error {rel:.3e} > 1e-4")
-        stats["K2"].append(dict(err=err, ms=ms_k, plain_ms=ms_p, snr=snr,
-                                per_frame=0 if fused else n_iter))
+        record(stats, "K2", Ts, 0 if fused else n_iter, err, ms_k, ms_p, bnd)
 
         # K3 as the level would run it (the L1 search only on L1 r=1 levels),
         # from fractional flows with half-integer ties
@@ -186,79 +249,144 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         err = float((f_k - f_p).abs().max())
         ms_k = timed(lambda: cuda_ica.ica_fused(*args))
         ms_p = timed(lambda: cuda_ica.ica_fused_plain(*args), n=3)
+        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, terms, mov_lvl, fl3, f_k),
+                    n_px * (14 * n_iter + (27 if bm else 0)))
         log(f"  K3 {key}{' with L1 search' if bm else ''}: flow max|d| {err:.3e}, "
-            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}) [{CARD}]")
         if not err <= 1e-4:
             raise AssertionError(f"K3 {key}: flow max|d| {err:.3e} > 1e-4")
-        stats["K3"].append(dict(err=err, ms=ms_k, plain_ms=ms_p, snr=snr,
-                                per_frame=1 if fused else 0))
+        record(stats, "K3", Ts, 1 if fused else 0, err, ms_k, ms_p, bnd)
 
 
-def check_warp_kernel(device, raw_shape, Ts, rng, stats):
+def random_flow(rng, H, W, Ts, device, lead=()):
+    fl = rng.uniform(-3, 3, lead + (-(-H // Ts), -(-W // Ts), 2)).astype(np.float32)
+    fl[..., 0, :4, :] = (-40.0, 7.5)        # trips ok_tile at the border
+    fl[..., -1, -4:, :] = (33.0, 41.0)
+    return torch.as_tensor(fl, device=device)
+
+
+def check_warp_kernel(device, raw_shape, Ts, rng, stats, time_plain):
     H, W = raw_shape
     lh, lw = H // 2, W // 2
     st = torch.as_tensor(rng.rand(3, lh, lw).astype(np.float32), device=device)
-    fl = rng.uniform(-3, 3, (-(-H // Ts), -(-W // Ts), 2)).astype(np.float32)
-    fl[0, :4] = (-40.0, 7.5)                # trips ok_tile at the border
-    fl[-1, -4:] = (33.0, 41.0)
-    flow = torch.as_tensor(fl, device=device)
+    flow = random_flow(rng, H, W, Ts, device)
     o_k, v_k = cuda_warp.upscale_warp(st, 2, Ts, flow, (H, W))
     o_p, v_p = cuda_warp.upscale_warp_plain(st, 2, Ts, flow, (H, W))
     err = nan_max_abs(o_k, o_p)
     n_mask = int((v_k != v_p).sum())
     ms_k = timed(lambda: cuda_warp.upscale_warp(st, 2, Ts, flow, (H, W)))
-    ms_p = timed(lambda: cuda_warp.upscale_warp_plain(st, 2, Ts, flow, (H, W)))
-    log(f"  K4 stats {(3, lh, lw)} -> {(3, H, W)}: max|d| {err:.3e}, valid "
+    ms_p = timed(lambda: cuda_warp.upscale_warp_plain(st, 2, Ts, flow, (H, W))) \
+        if time_plain else float("nan")
+    # per output pixel: 9 taps x (2 Dodgson weights ~8, their product, 3
+    # channel multiply-adds, the weight sum) and 3 divisions
+    bnd = bound(nbytes(st, flow, o_k, v_k), H * W * (9 * 16 + 3))
+    log(f"  K4 Ts={Ts} stats {(3, lh, lw)} -> {(3, H, W)}: max|d| {err:.3e}, valid "
         f"masks differing {n_mask} (invalid pixels {int((~v_p).sum())}), "
-        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+        f"kernel {ms_k:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}) [{CARD}]")
     if not (err <= 1e-5 and n_mask == 0):
-        raise AssertionError(f"K4: max|d| {err:.3e}, {n_mask} mask differences")
-    stats["K4"].append(dict(err=err, ms=ms_k, plain_ms=ms_p, snr=None, per_frame=1))
+        raise AssertionError(f"K4 Ts={Ts}: max|d| {err:.3e}, {n_mask} mask differences")
+    record(stats, "K4", Ts, 1, err, ms_k, ms_p, bnd)
 
 
-def check_merge_kernel(device, raw_shape, Ts, rng, stats):
+#: float operations of one frame at one HR pixel of K5/K5': 9 taps x (8 for
+#: the quadratic form, 1 exp, 2 for the weight, 2 to accumulate) and 25 for
+#: the covariance interpolation and the 2x2 inverse.
+MERGE_FLOPS = 9 * 13 + 25
+
+
+def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK):
+    """K5 on one frame and K5' on a chunk of F frames against their plain
+    versions (1e-5 relative), and K5' against F K5 launches (bit for bit)."""
     H, W = raw_shape
     config = burst_config(raw_shape, 40)
-    comp = torch.as_tensor(np.clip(blocky_scene(rng, H, W, 4)
-                                   + 0.02 * rng.randn(H, W), 0, 1).astype(np.float32),
-                           device=device)
-    covs = estimate_kernels(comp, config).contiguous()
-    fl = rng.uniform(-3, 3, (-(-H // Ts), -(-W // Ts), 2)).astype(np.float32)
-    fl[0, :4] = (-40.0, 7.5)
-    fl[-1, -4:] = (33.0, 41.0)
-    flow = torch.as_tensor(fl, device=device)
-    r = torch.as_tensor(rng.rand(H, W).astype(np.float32), device=device)
+    comp = torch.stack([torch.as_tensor(np.clip(
+        blocky_scene(rng, H, W, 4) + 0.02 * rng.randn(H, W), 0, 1).astype(np.float32),
+        device=device) for _ in range(F)])
+    covs = torch.stack([estimate_kernels(c, config) for c in comp]).contiguous()
+    flows = random_flow(rng, H, W, Ts, device, lead=(F,))
+    r = torch.as_tensor(rng.rand(F, H, W).astype(np.float32), device=device)
     base_n = torch.as_tensor(rng.rand(3, 2 * H, 2 * W).astype(np.float32), device=device)
     base_d = torch.as_tensor(rng.rand(3, 2 * H, 2 * W).astype(np.float32), device=device)
+    acc_bytes = 2 * nbytes(base_n, base_d)              # read and written once
+    frame_bytes = nbytes(comp[0], covs[0], flows[0], r[0])
+    px = base_n[0].numel()
+
+    def rel_errs(n_a, d_a, n_b, d_b):
+        abs_n, abs_d = nan_max_abs(n_a, n_b), nan_max_abs(d_a, d_b)
+        return (abs_n / float(n_b.abs().max()), abs_d / float(d_b.abs().max()),
+                max(abs_n, abs_d))
+
+    merge_args = (comp[0], flows[0], covs[0], r[0])
     n_k, d_k = base_n.clone(), base_d.clone()
     n_p, d_p = base_n.clone(), base_d.clone()
-    cuda_merge.merge_accumulate(comp, flow, covs, r, n_k, d_k, CFA_RGGB, Ts, 2)
-    cuda_merge.merge_plain(comp, flow, covs, r, n_p, d_p, CFA_RGGB, Ts, 2)
-    abs_n, abs_d = nan_max_abs(n_k, n_p), nan_max_abs(d_k, d_p)
-    err_n = abs_n / float(n_p.abs().max())
-    err_d = abs_d / float(d_p.abs().max())
-    ms_k = timed(lambda: cuda_merge.merge_accumulate(comp, flow, covs, r, n_k, d_k,
+    cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, 2)
+    cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, 2)
+    err_n, err_d, err = rel_errs(n_k, d_k, n_p, d_p)
+    ms_k = timed(lambda: cuda_merge.merge_accumulate(*merge_args, n_k, d_k,
                                                      CFA_RGGB, Ts, 2))
-    ms_p = timed(lambda: cuda_merge.merge_plain(comp, flow, covs, r, n_p, d_p,
-                                                CFA_RGGB, Ts, 2), n=3)
-    log(f"  K5 comp {(H, W)} -> num/den {(3, 2 * H, 2 * W)}: rel max|d| num "
-        f"{err_n:.3e} den {err_d:.3e}, kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    ms_p = timed(lambda: cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB,
+                                                Ts, 2), n=3) \
+        if time_plain else float("nan")
+    bnd = bound(acc_bytes + frame_bytes, px * MERGE_FLOPS)
+    log(f"  K5 Ts={Ts} comp {(H, W)} -> num/den {(3, 2 * H, 2 * W)}: rel max|d| num "
+        f"{err_n:.3e} den {err_d:.3e}, kernel {ms_k:.4f} ms, plain {plain_text(ms_p)}, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
     if not (err_n <= 1e-5 and err_d <= 1e-5):
-        raise AssertionError(f"K5: relative errors {err_n:.3e} / {err_d:.3e}")
-    stats["K5"].append(dict(err=max(abs_n, abs_d), ms=ms_k, plain_ms=ms_p, snr=None,
-                            per_frame=1))
+        raise AssertionError(f"K5 Ts={Ts}: relative errors {err_n:.3e} / {err_d:.3e}")
+    record(stats, "K5", Ts, 1, err, ms_k, ms_p, bnd)
+    del n_k, d_k, n_p, d_p
+
+    burst_args = (comp, flows, covs, r)
+    n_b, d_b = base_n.clone(), base_d.clone()
+    cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b, CFA_RGGB, Ts, 2)
+    n_s, d_s = base_n.clone(), base_d.clone()
+    for f in range(F):
+        cuda_merge.merge_accumulate(comp[f], flows[f], covs[f], r[f], n_s, d_s,
+                                    CFA_RGGB, Ts, 2)
+    d_seq = max(nan_max_abs(n_b, n_s), nan_max_abs(d_b, d_s))
+    same = torch.equal(n_b, n_s) and torch.equal(d_b, d_s)
+    del n_s, d_s
+    n_p, d_p = base_n.clone(), base_d.clone()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    cuda_merge.merge_burst_plain(*burst_args, n_p, d_p, CFA_RGGB, Ts, 2)
+    t1.record()
+    torch.cuda.synchronize()
+    err_n, err_d, err = rel_errs(n_b, d_b, n_p, d_p)
+    del n_p, d_p
+    ms_b = timed(lambda: cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b,
+                                                           CFA_RGGB, Ts, 2))
+    ms_seq = timed(lambda: [cuda_merge.merge_accumulate(
+        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, 2) for f in range(F)])
+    ms_p = t0.elapsed_time(t1) if time_plain else float("nan")
+    bnd = bound(acc_bytes + F * frame_bytes, F * px * MERGE_FLOPS)
+    log(f"  K5' Ts={Ts} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
+        f"(bit-identical: {same}); against its plain version rel max|d| num "
+        f"{err_n:.3e} den {err_d:.3e}; kernel {ms_b:.4f} ms per launch, {F} x K5 "
+        f"{ms_seq:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+        f"[{CARD}]")
+    if not (same and err_n <= 1e-5 and err_d <= 1e-5):
+        raise AssertionError(f"K5' Ts={Ts}: against K5 max|d| {d_seq:.3e}, relative "
+                             f"errors {err_n:.3e} / {err_d:.3e}")
+    # per frame of the main path, as the other entries
+    stats["K5'"].append(dict(Ts=Ts, per_frame=1.0 / F, err=err, ms=ms_b, plain_ms=ms_p,
+                             bound_ms=bnd[0], bound_by=bnd[1], seq_ms=ms_seq))
 
 
-def phase_kernels(device, grey_shape, seed=1):
-    """Phase 2. Returns per-kernel lists of dicts: max_abs_err ``err``,
-    ``ms``, ``plain_ms``, ``snr`` (None where the tile size does not matter)
-    and ``per_frame``, the launches per frame of the main path at that SNR."""
+def phase_kernels(device, raw_shape, seed=1):
+    """Phase 2. Returns per-kernel lists of dicts: the configuration's tile
+    size ``Ts``, ``per_frame`` (launches per frame of the main path at that
+    Ts), max_abs_err ``err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``."""
     rng = np.random.RandomState(seed)
     stats = {key: [] for key in KERNELS}
-    check_alignment_kernels(device, grey_shape, 40, rng, stats)   # Ts 16 (8)
-    check_alignment_kernels(device, grey_shape, 18, rng, stats)   # Ts 32 (16)
-    check_warp_kernel(device, grey_shape, 16, rng, stats)
-    check_merge_kernel(device, grey_shape, 16, rng, stats)
+    for snr in (40, 18, 8):                             # Ts 16, 32, 64
+        check_alignment_kernels(device, raw_shape, snr, rng, stats)
+    for Ts in (16, 32, 64):
+        check_warp_kernel(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
+        check_merge_kernels(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
     return stats
 
 
@@ -270,34 +398,44 @@ def phase_slice(device, size=512, n_frames=8, seed=2):
     frames = make_burst(size, size, n_frames, seed, device)
     std, diff = affine_curves()
     config = burst_config((size, size), 40, debug=True)
-    outs = {}
-    for dev in (device, "cpu"):
-        burst = frames.to(dev)
-        img, dbg = make_pipeline(config, CFA_RGGB, WB, dev)(burst[0], burst[1:],
-                                                             std, diff)
-        outs[dev] = (img.cpu(), dbg["flow"].cpu())
-    (img_g, flow_g), (img_c, flow_c) = outs[device], outs["cpu"]
-    d_flow = float((flow_g - flow_c).abs().max())
-    d_img = (img_g - img_c).abs()[8:-8, 8:-8]
-    res = dict(flow_max=d_flow, img_mean=float(d_img.mean()), img_max=float(d_img.max()))
-    log(f"phase 3 slice {size}x{size} x{n_frames} Ts="
-        f"{config.block_matching.tuning.tile_size}, card vs CPU: flow max|d| "
-        f"{res['flow_max']:.3e}, image mean|d| {res['img_mean']:.3e}, "
-        f"max|d| {res['img_max']:.3e}")
-    if not (d_flow < 1e-2 and res["img_mean"] < 1e-4 and res["img_max"] < 1e-3):
-        raise AssertionError(f"slice parity failed: {res}")
+    res = {}
+    for mode in ("scan", "chunked"):
+        config["tpu"] = {"pipeline": mode, "merge_chunk": 3}
+        outs = {}
+        for dev in (device, "cpu"):
+            burst = frames.to(dev)
+            img, dbg = make_pipeline(config, CFA_RGGB, WB, dev)(burst[0], burst[1:],
+                                                                 std, diff)
+            outs[dev] = (img, dbg["flow"])
+        (img_g, flow_g), (img_c, flow_c) = outs[device], outs["cpu"]
+        d_flow = float((flow_g.cpu() - flow_c).abs().max())
+        d_img = (img_g.cpu() - img_c).abs()[8:-8, 8:-8]
+        res[mode] = dict(flow_max=d_flow, img_mean=float(d_img.mean()),
+                         img_max=float(d_img.max()), img=img_g)
+        log(f"phase 3 slice {size}x{size} x{n_frames} Ts="
+            f"{config.block_matching.tuning.tile_size} {mode}, card vs CPU: flow "
+            f"max|d| {d_flow:.3e}, image mean|d| {res[mode]['img_mean']:.3e}, "
+            f"max|d| {res[mode]['img_max']:.3e}")
+        if not (d_flow < 1e-2 and res[mode]["img_mean"] < 1e-4
+                and res[mode]["img_max"] < 1e-3):
+            raise AssertionError(f"slice parity failed ({mode}): {res[mode]}")
+    d = float((res["chunked"]["img"] - res["scan"]["img"]).abs().max())
+    log(f"phase 3 chunked vs scan on the card: image max|d| {d:.3e}")
+    if d != 0.0:
+        raise AssertionError(f"chunked and scan differ on the card: max|d| {d:.3e}")
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the full main path
+# phase 4: the scan main path
 # ---------------------------------------------------------------------------
 
 def expected_launches(ref, config, n_cmp):
     """Launches per burst of each kernel that the path implies: per
     compared frame and level, K1 then n_iter K2 steps, or K3 on levels under
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
-    else after K1); one K4 and one K5 per frame, and two K4 at init."""
+    else after K1); one K4 per frame and two at init; one K5 per frame
+    (scan), or one K5' per chunk of ``tpu.merge_chunk`` frames (chunked)."""
     n_iter = config.ica.tuning.n_iter
     state = init_alignment(compute_grey_image(ref, "FFT"), config)
     k1 = k2 = k3 = 0
@@ -308,91 +446,211 @@ def expected_launches(ref, config, n_cmp):
         else:
             k1 += 1
             k2 += n_iter
-    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3,
-            "K4": n_cmp + 2, "K5": n_cmp}
+    tpu = config.get("tpu", {})
+    chunked = tpu.get("pipeline", "auto") == "chunked"
+    fc = max(1, min(int(tpu.get("merge_chunk", 5)), n_cmp))
+    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": n_cmp + 2,
+            "K5": 0 if chunked else n_cmp, "K5'": -(-n_cmp // fc) if chunked else 0}
 
 
-def phase_full(device, h=3000, w=4000, n_frames=20, n_runs=3, seed=0):
-    t0 = time.perf_counter()
-    frames = make_burst(h, w, n_frames, seed, device)
+def run_timed(fn, n_runs, expect_fn, what, device):
+    """Warm-up + ``n_runs`` timed runs of ``fn()`` (host clock, ending in a
+    synchronise); launch counts of every run checked against
+    ``expect_fn()`` (evaluated after the warm-up). Returns (image, debug,
+    times, launches, warm-up seconds)."""
+    times, expect = [], None
+    for i in range(n_runs + 1):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        image, debug = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        if expect is None:
+            expect = expect_fn()
+        check_counts(got, expect, what)
+        sub = image[::31, ::37]
+        checksum = float(torch.where(torch.isfinite(sub), sub,
+                                     torch.zeros((), device=device)).sum())
+        log(f"  {what} run {i} ({'warm-up' if i == 0 else 'timed'}): {dt:.4f} s, "
+            f"checksum {checksum:.6f} [{CARD}]")
+        if i:
+            times.append(dt)
+        else:
+            warm = dt
+    return image, debug, times, got, warm
+
+
+def check_image(image, shape, what):
+    if tuple(image.shape) != shape:
+        raise AssertionError(f"{what}: image shape {tuple(image.shape)}, expected {shape}")
+    if not bool(torch.isfinite(image[8:-8, 8:-8]).all()):
+        raise AssertionError(f"{what}: non-finite values in the image interior")
+
+
+def phase_full(frames, device, n_runs=3):
+    h, w = frames.shape[1:]
     std, diff = affine_curves()
     snr = burst_snr(frames[0], std)
     config = burst_config((h, w), snr)
-    torch.cuda.synchronize()
-    log(f"phase 4 burst {n_frames}x{h}x{w} made on the card in "
-        f"{time.perf_counter() - t0:.2f} s; SNR {snr:.1f} -> Ts="
+    log(f"phase 4 scan pipeline, burst {tuple(frames.shape)}: SNR {snr:.1f} -> Ts="
         f"{config.block_matching.tuning.tile_size}, scale {config.scale}")
     ref, comps = frames[0], frames[1:]
     pipe = make_pipeline(config, CFA_RGGB, WB, device)
     std_t = torch.as_tensor(std, device=device)
     diff_t = torch.as_tensor(diff, device=device)
-
-    expect = expected_launches(ref, config, n_frames - 1)
     torch.cuda.reset_peak_memory_stats()
-    times, launches = [], None
-    for i in range(n_runs + 1):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        image, _ = pipe(ref, comps, std_t, diff_t)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        got = counts()
-        if got != expect or not all(got.values()):
-            raise AssertionError(f"kernel launch counts {got}, expected {expect}")
-        launches = got
-        sub = image[::31, ::37]
-        checksum = float(torch.where(torch.isfinite(sub), sub,
-                                     torch.zeros((), device=device)).sum())
-        log(f"  run {i} ({'warm-up' if i == 0 else 'timed'}): {dt:.4f} s, "
-            f"checksum {checksum:.6f}")
-        if i:
-            times.append(dt)
-    if tuple(image.shape) != (2 * h, 2 * w, 3):
-        raise AssertionError(f"image shape {tuple(image.shape)}")
-    if not bool(torch.isfinite(image[8:-8, 8:-8]).all()):
-        raise AssertionError("non-finite values in the image interior")
+    image, _, times, launches, _ = run_timed(
+        lambda: pipe(ref, comps, std_t, diff_t), n_runs,
+        lambda: expected_launches(ref, config, len(comps)), "phase 4", device)
+    check_image(image, (2 * h, 2 * w, 3), "phase 4")
     peak = torch.cuda.max_memory_allocated()
     res = dict(min_s=min(times), median_s=statistics.median(times),
-               peak_bytes=peak, launches=launches, checksum=checksum)
-    log(f"phase 4 {n_frames}x{h}x{w} x{config.scale}: min {res['min_s']:.4f} s, "
+               peak_bytes=peak, launches=launches)
+    log(f"phase 4 {len(frames)}x{h}x{w} x{config.scale}: min {res['min_s']:.4f} s, "
         f"median {res['median_s']:.4f} s of {n_runs}; peak memory "
-        f"{peak / 2**30:.3f} GiB; launches per run {launches}; interior finite")
+        f"{peak / 2**30:.3f} GiB; launches per run {launches}; interior finite "
+        f"[{CARD}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: process_arrays
+# ---------------------------------------------------------------------------
+
+def process_config(mode):
+    """The default configuration at x2 with the burst's affine noise model
+    (so ``process_arrays`` draws its Monte-Carlo curves on the card), the
+    default device finishing (sharpening + gamma), ``tpu.pipeline`` mode."""
+    c = configs.default_config()
+    c.scale = 2
+    c.verbose = 0
+    c.noise_model.update(alpha=ALPHA, beta=BETA)
+    c["tpu"] = {"pipeline": mode, "merge_chunk": CHUNK}
+    return c
+
+
+def run_process(frames, mode, device, what, n_runs=3):
+    """``process_arrays`` on ``frames``: warm-up + ``n_runs`` timed runs with
+    fresh configurations, launch counts asserted; returns a dict with the
+    last image, times, launches, the resolved Ts and the peak memory."""
+    h, w = frames.shape[1:]
+    cfgs = []
+
+    def call():
+        cfgs.append(process_config(mode))
+        return process_arrays(frames[0], frames[1:], cfgs[-1], device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    image, debug, times, launches, warm = run_timed(
+        call, n_runs, lambda: expected_launches(frames[0], cfgs[-1], len(frames) - 1),
+        what, device)
+    peak = torch.cuda.max_memory_allocated()
+    check_image(image, (2 * h, 2 * w, 3), what)
+    if peak > MAX_PEAK_GIB[mode] * 2**30:
+        raise AssertionError(f"{what}: peak memory {peak / 2**30:.3f} GiB > "
+                             f"{MAX_PEAK_GIB[mode]} GiB")
+    if tuple(debug["accumulated_robustness"].shape) != (h, w):
+        raise AssertionError(f"{what}: accumulated robustness "
+                             f"{tuple(debug['accumulated_robustness'].shape)}")
+    res = dict(image=image, min_s=min(times), median_s=statistics.median(times),
+               warm_s=warm, launches=launches, peak_bytes=peak,
+               Ts=cfgs[-1].block_matching.tuning.tile_size)
+    log(f"{what}: Ts={res['Ts']}, warm-up {warm:.4f} s, min {res['min_s']:.4f} s, "
+        f"median {res['median_s']:.4f} s of {n_runs}; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per run {launches}; interior finite "
+        f"[{CARD}]")
+    return res
+
+
+def phase_process(frames, device):
+    """Phase 5: scan and chunked through ``process_arrays``; same image."""
+    res = {mode: run_process(frames, mode, device, f"phase 5 process_arrays {mode}")
+           for mode in ("scan", "chunked")}
+    for mode, want in BRIGHT_LAUNCHES.items():
+        check_counts(res[mode]["launches"], want, f"phase 5 {mode}")
+    a, b = res["scan"]["image"], res["chunked"]["image"]
+    d = (a - b).abs()
+    d_max = float(d.max())
+    log(f"phase 5 scan vs chunked: image max|d| {d_max:.3e}, "
+        f"{int((d > 0).sum())} values differ")
+    if d_max != 0.0:
+        raise AssertionError(
+            f"phase 5: scan and chunked images differ (max|d| {d_max:.3e}); K5' is "
+            f"held bit-identical to K5 and the analysis is the same, so the bound "
+            f"is 0")
+    return res
+
+
+def phase_dark(device, h=3000, w=4000, n_frames=20, seed=0):
+    """Phase 6: the dark cells (``bench.py``'s brightness 0.07 and 0.02)."""
+    res = {}
+    for name, b, want_ts in (("dark", 0.07, 32), ("dark64", 0.02, 64)):
+        frames = make_burst(h, w, n_frames, seed, device, brightness=b)
+        res[name] = run_process(frames, "scan", device,
+                                f"phase 6 {name} (brightness {b}) process_arrays scan")
+        del frames
+        if res[name]["Ts"] != want_ts:
+            raise AssertionError(f"phase 6 {name}: Ts={res[name]['Ts']}, expected "
+                                 f"{want_ts} from the SNR")
+        res[name].pop("image")
     return res
 
 
 def main():
+    global CARD
     check_no_reference_imports()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke test needs a CUDA card")
     device = "cuda"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"phase 0 torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t_start = time.perf_counter()
 
     _build.library()
-    log(f"phase 1 built {len(KERNELS)} kernels in {_build.build_seconds:.2f} s")
+    log(f"phase 1 built {len(KERNELS)} kernels in {_build.build_seconds:.2f} s "
+        f"[{CARD}]")
 
     log("phase 2 kernels against their plain versions (main-path shapes)")
     stats = phase_kernels(device, (3000, 4000))
     phase_slice(device)
-    phase_full(device)
+    frames = make_burst(3000, 4000, 20, 0, device)
+    phase_full(frames, device)
+    launches = counts()
+    proc = phase_process(frames, device)
+    launches["K5'"] = proc["chunked"]["launches"]["K5'"]
+    del frames, proc
+    phase_dark(device)
+    check_no_reference_imports()
+    log(f"phases 0-6 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
-        # time per frame of the main path's launches (the Ts=16 set)
-        main_path = [e for e in stats[key] if e["snr"] in (40, None)]
-        entries.append({
+        # per frame of the main path: the Ts=16 launches, each as often as a
+        # frame of the path launches it
+        main_path = [e for e in stats[key] if e["Ts"] == MAIN_TS and e["per_frame"]]
+
+        def per_frame(field):
+            return sum(e["per_frame"] * e[field] for e in main_path)
+
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": fn.launches,
+            "launches": launches[key],
             "max_abs_err": max(e["err"] for e in stats[key]),
-            "ms": sum(e["per_frame"] * e["ms"] for e in main_path),
-            "plain_ms": sum(e["per_frame"] * e["plain_ms"] for e in main_path)})
-    check_no_reference_imports()
+            "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
+            "bound_ms": per_frame("bound_ms"),
+            "bound_by": max(main_path, key=lambda e: e["per_frame"] * e["bound_ms"])
+            ["bound_by"],
+            "library_ms": None}
+        if key == "K5'":
+            entry["k5_sequential_ms"] = per_frame("seq_ms")
+        entries.append(entry)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,251 @@
+"""Public API: ``process``, ``process_arrays``, ``process_burst`` (twin of
+:mod:`hmsr_tpu.models.process`).
+
+The steps, in the order of the JAX package: the noise model (the user's
+alpha/beta > the burst's noise profile > ISO-keyed curves from the repo's
+``data/``), the Monte-Carlo noise curves when none were loaded, the SNR and
+the SNR-adaptive configuration, the pipeline (:mod:`.pipeline`), the device
+finishing chain, and the EXIF orientation of the image and of the
+accumulated robustness.
+
+Everything runs on one ``device``, the card unless the caller asks for the
+CPU: the burst is moved there once, and the image (H*s, W*s, 3) and the
+debug tensors are returned there. What the port lacks raises
+``NotImplementedError`` before any work: the host finishing chain (OpenCV's
+Mertens fusion), a device mesh, the accumulated-robustness denoisers.
+"""
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..configs import default_config, sanitize_config, update_snr_config
+from ..finishing import apply_orientation, make_postprocess_device
+from ..io.burst import Burst, load_burst
+from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
+from ..ops.grey import compute_grey_image
+from ..utils.timing import getTime, timer
+from ..utils.types import DEFAULT_FLOAT, resolve_device
+from .alignment import align, init_alignment
+from .kernels import estimate_kernels
+from .merge_tiled import merge_tiled
+from .pipeline import make_pipeline
+from .robustness import compute_robustness, init_robustness
+
+#: the repo's ``data/`` directory of ISO-keyed noise curves.
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "data")
+
+
+def process(burst_path, config=None, device="cuda"):
+    """Process a raw burst folder / bundle into an RGB image; returns
+    ``(image, debug)`` on ``device``."""
+    if config is None:
+        config = default_config()
+    burst = load_burst(burst_path, mode=config.mode)
+    return process_burst(burst, config, device)
+
+
+def process_arrays(ref_raw, comp_raws, config=None, cfa=None,
+                   white_balance=None, xyz2cam=None, orientation=1, iso=100,
+                   device="cuda"):
+    """Process an already-loaded burst: ``ref_raw`` (H, W) and ``comp_raws``
+    (N-1, H, W), numpy arrays or tensors, moved to ``device`` as float32
+    once."""
+    if config is None:
+        config = default_config()
+    if cfa is None:
+        cfa = np.array([[0, 1], [1, 2]])
+    if white_balance is None:
+        white_balance = [1.0, 1.0, 1.0]
+    burst = Burst(ref_raw=ref_raw, comp_raws=comp_raws,
+                  iso=iso, cfa=np.asarray(cfa), xyz2cam=xyz2cam,
+                  white_balance=list(white_balance), noise_alpha=None,
+                  noise_beta=None, orientation=orientation, ref_path=None)
+    return process_burst(burst, config, device)
+
+
+def check_process_supported(config):
+    """Raise ``NotImplementedError`` for what the port's ``process_burst``
+    lacks (the pipeline checks its own slice)."""
+    mesh = config.get("tpu", {}).get("mesh", None)
+    if mesh and int(mesh[0]) * int(mesh[1]) > 1:
+        raise NotImplementedError(f"tpu.mesh={list(mesh)}: sharding over several "
+                                  f"devices is not ported")
+    ard = config.accumulated_robustness_denoiser
+    if ard.median.enabled or ard.gauss.enabled or ard.merge.enabled:
+        raise NotImplementedError("the accumulated-robustness denoisers are not ported")
+    pp = config.postprocessing
+    if pp.enabled:
+        # the JAX package's choice: the host chain unless "device" is asked
+        # for, or "auto" without a Mertens fusion to run (tonemapping with cv2)
+        impl = config.get("tpu", {}).get("finishing_impl", "auto")
+        needs_mertens = False
+        if pp.do_tonemapping and impl != "device":
+            try:
+                import cv2  # noqa: F401
+                needs_mertens = True
+            except ImportError:
+                pass
+        if not (impl == "device" or (impl == "auto" and not needs_mertens)):
+            raise NotImplementedError(
+                f"tpu.finishing_impl={impl!r} selects the host finishing chain "
+                f"(OpenCV Mertens fusion), which is not ported; "
+                f"tpu.finishing_impl='device' tonemaps with the smoothstep")
+
+
+def _trace_stages(burst, std_curve, diff_curve, config, device):
+    """verbose >= 3: per-stage times on the first compared frame, each stage
+    run on its own and ended by a synchronise (relative weights, not a
+    budget)."""
+    def sync(x):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return x
+
+    grey_method = str(config.get("grey_method", "FFT"))
+    ref, frame = burst.ref_raw, burst.comp_raws[0]
+    curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
+              torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
+    cfa, wb = burst.cfa, burst.white_balance
+    print(" -- Stage trace (first frame):")
+    t0 = time.perf_counter()
+    astate = sync(init_alignment(compute_grey_image(ref, grey_method), config))
+    rstats = sync(init_robustness(ref, cfa, wb, curves, config))
+    t0 = getTime(t0, " --- Ref init (grey+pyramid+stats)")
+    grey = sync(compute_grey_image(frame, grey_method))
+    t0 = getTime(t0, " --- Grey conversion")
+    flow = sync(align(astate, grey, config))
+    t0 = getTime(t0, " --- Alignment (BM + ICA)")
+    r = sync(compute_robustness(frame, rstats, flow, cfa, wb, config))
+    t0 = getTime(t0, " --- Robustness")
+    covs = sync(estimate_kernels(frame, config))
+    t0 = getTime(t0, " --- Kernel estimation")
+    h, w = frame.shape
+    s = int(config.scale)
+    num = torch.zeros((3, s * h, s * w), dtype=DEFAULT_FLOAT, device=device)
+    den = torch.zeros_like(num)
+    sync(merge_tiled(frame, flow, covs, r, num, den, cfa, config))
+    getTime(t0, " --- Merge (one frame)")
+
+
+def _try_iso_curves(burst, config):
+    """ISO-keyed curves from ``config.noise_model.data_dir`` or the repo's
+    ``data/`` (:data:`DATA_DIR`); ``(None, None)`` when there are none.
+    (The JAX package also looks in ``./data`` of the working directory; the
+    port reads nothing outside its checkout unless told to.)"""
+    if burst.iso is None:
+        return None, None
+    for d in (config.noise_model.get("data_dir", None), DATA_DIR):
+        if not d:
+            continue
+        try:
+            std, diff = load_noise_curves(burst.iso, d)
+        except (OSError, ValueError):
+            continue
+        return np.asarray(std, np.float32), np.asarray(diff, np.float32)
+    return None, None
+
+
+def process_burst(burst, config, device="cuda"):
+    """Returns ``(image (H*s, W*s, 3), debug)`` on ``device``; ``config`` is
+    resolved in place (noise model, SNR-based entries), as in the JAX
+    package."""
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    check_process_supported(config)
+    verbose_1 = config.verbose >= 1
+    verbose_2 = config.verbose >= 2
+    ref = torch.as_tensor(burst.ref_raw, dtype=DEFAULT_FLOAT, device=device)
+    comps = torch.as_tensor(burst.comp_raws, dtype=DEFAULT_FLOAT, device=device)
+    burst = burst._replace(ref_raw=ref, comp_raws=comps)
+
+    # ---- noise model: user-provided > burst noise profile > ISO-keyed curves
+    std_curve = diff_curve = None
+    if config.noise_model.get("alpha", None) is not None:
+        if verbose_1:
+            print("Using user provided alpha and beta values")
+        alpha, beta = config.noise_model.alpha, config.noise_model.beta
+    elif burst.noise_alpha is not None:
+        alpha, beta = burst.noise_alpha, burst.noise_beta
+    else:
+        std_curve, diff_curve = _try_iso_curves(burst, config)
+        if std_curve is None:
+            raise ValueError(
+                "No noise model available: provide noise_model.alpha/beta in "
+                "the config, use bundles carrying a noise profile, or ship "
+                "ISO-keyed curves (noise_model.data_dir).")
+        if verbose_1:
+            print(f"Using ISO-keyed noise curves (ISO {burst.iso})")
+        alpha, beta = fit_alpha_beta(std_curve)
+    config.noise_model.update({"alpha": float(alpha), "beta": float(beta)})
+
+    # ---- Monte-Carlo noise curves on the device (cached per alpha/beta)
+    if std_curve is None:
+        std_curve, diff_curve = run_fast_MC(alpha, beta, device=device)
+    if verbose_2:
+        t0 = getTime(t0, " -- Read raw files & noise curves")
+
+    # ---- SNR-adaptive hyperparameters
+    brightness = float(torch.mean(ref, dtype=torch.float64))
+    id_noise = int(round(1000 * brightness))
+    std = std_curve[np.clip(id_noise, 0, len(std_curve) - 1)]
+    snr = brightness / std
+    if verbose_1:
+        print(" ", 10 * "-")
+        print(f"|ISO : {burst.iso}")
+        print(f"|Image brightness : {brightness:.2f}")
+        print(f"|expected noise std : {std:.2e}")
+        print(f"|Estimated SNR : {snr:.2f}")
+    update_snr_config(config, snr)
+    sanitize_config(config, tuple(ref.shape))
+    ard = config.accumulated_robustness_denoiser
+    ard.enabled = bool(ard.median.enabled or ard.gauss.enabled or ard.merge.enabled)
+
+    # ---- the pipeline, optionally under torch.profiler
+    if config.verbose >= 3:
+        _trace_stages(burst, std_curve, diff_curve, config, device)
+    pipe = make_pipeline(config, burst.cfa, burst.white_balance, device)
+    pipe = timer(pipe, verbose_2, end_s=" -- Device pipeline (align+merge)")
+    curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
+              torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
+    profile_dir = config.get("tpu", {}).get("profile_dir", None)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + \
+            ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            image, debug = pipe(ref, comps, *curves)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
+    else:
+        image, debug = pipe(ref, comps, *curves)
+
+    # ---- finishing on the device
+    pp = config.postprocessing
+    if pp.enabled:
+        if verbose_2:
+            print("-- Post processing image (device)")
+        fin = make_postprocess_device(
+            do_color_correction=pp.do_color_correction,
+            do_tonemapping=pp.do_tonemapping,
+            do_gamma=pp.do_gamma_correction,
+            sharpening_config=pp.sharpening,
+            do_devignette=pp.do_devignetting,
+            xyz2cam=burst.xyz2cam)
+        image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(image)
+
+    image = apply_orientation(image, burst.orientation)
+    if "accumulated_robustness" in debug:
+        debug["accumulated_robustness"] = apply_orientation(
+            debug["accumulated_robustness"], burst.orientation)
+
+    if verbose_1:
+        s = "\nTotal ellapsed time : "
+        print(s, " " * (50 - len(s)), ": ", round(time.perf_counter() - t0, 2),
+              "seconds")
+    return image, debug

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build happens
 at first use (never at import), into ``build/hmsr_kernels/`` at the root of
 the checkout, which ``.gitignore`` lists; the library's file name carries a
 hash of the sources and flags, so an edited source is rebuilt. Without
@@ -29,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hmsr_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,8 @@ SIGNATURES = {
     "hmsr_upscale_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "hmsr_merge": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _P],
+    "hmsr_merge_burst": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -80,14 +83,25 @@ def library():
     t0 = time.perf_counter()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
+        tmp = f"{so}.{os.getpid()}"
+        nvcc = _nvcc()
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        outs = [p.communicate() for p in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs]
+        try:
+            for cmd, p, (out, err) in zip(cmds, procs, outs):
+                _check_run(cmd, p.returncode, out, err)
+            res = subprocess.run(link, capture_output=True, text=True)
+            _check_run(link, res.returncode, res.stdout, res.stderr)
+            os.replace(f"{tmp}.tmp", so)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -96,6 +110,12 @@ def library():
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+def _check_run(cmd, returncode, stdout, stderr):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")
 
 
 def check(code, name):

@@ -1,13 +1,17 @@
-"""K5 (merge accumulation of one frame): CUDA kernel wrapper and its plain
-PyTorch version.
+"""K5 (merge accumulation of one frame) and K5' (the same over a chunk of
+frames, accumulators read and written once): CUDA kernel wrappers and their
+plain PyTorch versions.
 
-Counterpart of :mod:`hmsr_tpu.ops.pallas_merge` (per-frame form). The
-kernel is ``csrc/merge.cu`` (replaces ``pallas_merge.py:_merge_group_kernel``);
-its header says what bounds it on the H100 and how the design answers it.
-The accumulators keep the plain ``(3, H*s, W*s)`` shape (the TPU's
-``padded_accum_shape`` is a tiling artefact) and are updated in place. The
-wrapper launches the kernel for CUDA tensors and runs the plain version only
-for CPU tensors; ``merge_accumulate.launches`` counts kernel launches.
+Counterpart of :mod:`hmsr_tpu.ops.pallas_merge`: ``merge_pallas`` (per
+frame) and ``merge_burst_pallas`` (frames grid). The kernels are
+``csrc/merge.cu`` and ``csrc/merge_burst.cu`` (both replace
+``pallas_merge.py:_merge_group_kernel``); their headers say what bounds them
+on the H100 and how the design answers it. The accumulators keep the plain
+``(3, H*s, W*s)`` shape (the TPU's ``padded_accum_shape`` is a tiling
+artefact) and are updated in place. A wrapper launches its kernel for CUDA
+tensors and runs the plain version only for CPU tensors;
+``merge_accumulate.launches`` and ``merge_burst_accumulate.launches`` count
+kernel launches.
 """
 
 import numpy as np
@@ -150,6 +154,53 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
     return num, den
 
 
+def merge_burst_plain(comp_stack, flows, covs_stack, r_stack, num, den,
+                      cfa_pattern, tile_size, scale):
+    """Plain version of K5': :func:`merge_plain` over the frames of the
+    stacks, in order. Returns ``(num, den)``."""
+    for comp, flow, covs, r in zip(comp_stack, flows, covs_stack, r_stack):
+        merge_plain(comp, flow, covs, r, num, den, cfa_pattern, tile_size, scale)
+    return num, den
+
+
+def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, lead=()):
+    """Checks shared by the K5 and K5' wrappers; ``lead`` is the frame axis
+    of the stacked inputs (empty for one frame). Returns ``(H, W)``."""
+    Ts, s = int(tile_size), int(scale)
+    dev = comp.device
+    nl = len(lead)
+    for name, t, nd in (("comp", comp, 2 + nl), ("flow", flow, 3 + nl),
+                        ("covs", covs, 3 + nl), ("r", r, 2 + nl), ("num", num, 3),
+                        ("den", den, 3)):
+        _build.check_f32(name, t, nd, dev)
+    H, W = comp.shape[nl:]
+    _build.check_arg(all(tuple(t.shape[:nl]) == lead for t in (comp, flow, covs, r)),
+                     f"stacks of different lengths: comp {tuple(comp.shape)}, flow "
+                     f"{tuple(flow.shape)}, covs {tuple(covs.shape)}, r {tuple(r.shape)}")
+    _build.check_arg(s == scale and s >= 1, f"integer scale required, got {scale}")
+    _build.check_arg(tuple(num.shape) == (3, H * s, W * s) == tuple(den.shape),
+                     f"accumulators {tuple(num.shape)}, {tuple(den.shape)} "
+                     f"for a {(H, W)} frame at scale {s}")
+    _build.check_arg(tuple(r.shape[nl:]) == (H, W) and covs.shape[nl] == 3,
+                     f"r {tuple(r.shape)}, covs {tuple(covs.shape)}")
+    fy, fx, fc = flow.shape[nl:]
+    _build.check_arg(fy >= -(-H // Ts) and fx >= -(-W // Ts) and fc == 2,
+                     f"flow {tuple(flow.shape)} does not cover {(H, W)} at Ts={Ts}")
+    _build.check_arg(Ts % 2 == 0, f"tile size {Ts} must be even")
+    return H, W
+
+
+def _launch_args(cfa_pattern, tensors):
+    """CUDA-side checks of both wrappers; returns the CFA as 4 ints."""
+    _build.require_cuda(tensors[0].device)
+    _build.check_arg(all(t.is_contiguous() for t in tensors),
+                     "merge inputs must be contiguous")
+    cfa = [int(v) for v in np.asarray(cfa_pattern).reshape(-1)]
+    _build.check_arg(len(cfa) == 4 and all(0 <= v < 3 for v in cfa),
+                     f"bad CFA pattern {cfa}")
+    return cfa
+
+
 def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
                      tile_size, scale):
     """K5: accumulate one Bayer frame into ``num``/``den`` (3, H*s, W*s) in
@@ -160,35 +211,14 @@ def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
     contiguous float32 on one device. Integer ``scale`` only.
     """
     Ts, s = int(tile_size), int(scale)
-    dev = comp_img.device
-    for name, t, nd in (("comp_img", comp_img, 2), ("flow", flow, 3),
-                        ("covs", covs, 3), ("r", r, 2), ("num", num, 3),
-                        ("den", den, 3)):
-        _build.check_f32(name, t, nd, dev)
-    H, W = comp_img.shape
-    out_h, out_w = num.shape[1:]
-    _build.check_arg(s == scale and s >= 1, f"integer scale required, got {scale}")
-    _build.check_arg(tuple(num.shape) == (3, H * s, W * s) == tuple(den.shape),
-                     f"accumulators {tuple(num.shape)}, {tuple(den.shape)} "
-                     f"for a {(H, W)} frame at scale {s}")
-    _build.check_arg(tuple(r.shape) == (H, W) and covs.shape[0] == 3,
-                     f"r {tuple(r.shape)}, covs {tuple(covs.shape)}")
-    _build.check_arg(flow.shape[0] >= -(-H // Ts) and flow.shape[1] >= -(-W // Ts)
-                     and flow.shape[2] == 2,
-                     f"flow {tuple(flow.shape)} does not cover {(H, W)} at Ts={Ts}")
-    _build.check_arg(Ts % 2 == 0, f"tile size {Ts} must be even")
-    if dev.type == "cpu":
+    H, W = _check_merge_args(comp_img, flow, covs, r, num, den, Ts, scale)
+    if comp_img.device.type == "cpu":
         return merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, Ts, s)
-    _build.require_cuda(dev)
-    _build.check_arg(all(t.is_contiguous() for t in (comp_img, flow, covs, r, num, den)),
-                     "merge inputs must be contiguous")
-    cfa = [int(v) for v in np.asarray(cfa_pattern).reshape(-1)]
-    _build.check_arg(len(cfa) == 4 and all(0 <= v < 3 for v in cfa),
-                     f"bad CFA pattern {cfa}")
-    lib = _build.library()
-    code = lib.hmsr_merge(
-        _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1], _build.ptr(covs), covs.shape[1], covs.shape[2],
-        _build.ptr(r), _build.ptr(num), _build.ptr(den), out_h, out_w, Ts, s,
+    cfa = _launch_args(cfa_pattern, (comp_img, flow, covs, r, num, den))
+    code = _build.library().hmsr_merge(
+        _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1],
+        _build.ptr(covs), covs.shape[1], covs.shape[2], _build.ptr(r),
+        _build.ptr(num), _build.ptr(den), num.shape[1], num.shape[2], Ts, s,
         *cfa, _build.stream_of(comp_img))
     _build.check(code, "hmsr_merge")
     merge_accumulate.launches += 1
@@ -196,3 +226,34 @@ def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
 
 
 merge_accumulate.launches = 0
+
+
+def merge_burst_accumulate(comp_stack, flows, covs_stack, r_stack, num, den,
+                           cfa_pattern, tile_size, scale):
+    """K5': accumulate the F Bayer frames of the stacks into ``num``/``den``
+    (3, H*s, W*s) in place, in frame order, in one launch; returns ``(num,
+    den)``, bit-identical to F :func:`merge_accumulate` calls.
+
+    ``comp_stack``: (F, H, W); ``flows``: (F, ny, nx, 2); ``covs_stack``:
+    (F, 3, gh, gw); ``r_stack``: (F, H, W); all contiguous float32 on one
+    device. Integer ``scale`` only.
+    """
+    Ts, s = int(tile_size), int(scale)
+    F = comp_stack.shape[0] if comp_stack.dim() == 3 else -1
+    H, W = _check_merge_args(comp_stack, flows, covs_stack, r_stack, num, den, Ts,
+                             scale, lead=(F,))
+    if comp_stack.device.type == "cpu":
+        return merge_burst_plain(comp_stack, flows, covs_stack, r_stack, num, den,
+                                 cfa_pattern, Ts, s)
+    cfa = _launch_args(cfa_pattern, (comp_stack, flows, covs_stack, r_stack, num, den))
+    code = _build.library().hmsr_merge_burst(
+        _build.ptr(comp_stack), F, H, W, _build.ptr(flows), flows.shape[1],
+        flows.shape[2], _build.ptr(covs_stack), covs_stack.shape[2],
+        covs_stack.shape[3], _build.ptr(r_stack), _build.ptr(num), _build.ptr(den),
+        num.shape[1], num.shape[2], Ts, s, *cfa, _build.stream_of(comp_stack))
+    _build.check(code, "hmsr_merge_burst")
+    merge_burst_accumulate.launches += 1
+    return num, den
+
+
+merge_burst_accumulate.launches = 0

@@ -3,13 +3,15 @@
 Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
     python3 -m hmsr_tpu_torch.profile_burst [--height 3000 --width 4000
-        --frames 20 --seed 0 --out profile.txt]
+        --frames 20 --seed 0 --pipeline scan --out profile.txt]
 
 It makes the ``bench.py`` headline burst on the card
-(:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline once to warm up, once
-unprofiled (wall seconds), and once under ``torch.profiler`` with a
-``record_function`` range around every stage call of
-:mod:`hmsr_tpu_torch.models.pipeline`. It prints, for the profiled run:
+(:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
+``--pipeline``: scan, or chunked with chunks of 5) once to warm up,
+:data:`RUNS` times unprofiled (wall seconds, each and the median), and once
+under ``torch.profiler`` with a ``record_function`` range around every stage
+call of :mod:`hmsr_tpu_torch.models.pipeline`. It prints, for the profiled
+run:
 
 - its wall seconds, and the kernel-only device time: the self device time
   of every CUDA kernel row, annotations excluded; the busy share is that
@@ -21,13 +23,16 @@ unprofiled (wall seconds), and once under ``torch.profiler`` with a
   op tree: each is added to the stage that launches it (:data:`LAUNCHED_BY`),
   K4's time split between its two stages by launch count;
 - the device time and launches of each hand-written kernel, and the
-  heaviest device rows.
+  heaviest device rows;
+- the heaviest host rows by self CPU time (the CUDA runtime calls among
+  them: allocations, frees, synchronisations).
 
 The table goes to stdout, and also to ``--out`` when it is given.
 """
 
 import argparse
 import os
+import statistics
 import subprocess
 import time
 
@@ -40,9 +45,10 @@ from .synthetic import CFA_RGGB, WB, affine_curves, burst_config, burst_snr, mak
 
 STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
           "compute_robustness", "estimate_kernels", "merge_tiled",
-          "merge_ref_tiled", "normalize_accum")
+          "_merge_burst_chunked", "merge_ref_tiled", "normalize_accum")
+RUNS = 5                # unprofiled warm runs: the wall spread between runs
 HAND_WRITTEN = ("bm_kernel", "ica_step_kernel", "ica_fused_kernel", "warp_kernel",
-                "merge_kernel")
+                "merge_kernel", "merge_burst_kernel")
 #: stage -> (hand-written kernel, its launches per burst from that stage);
 #: None stands for "every launch of the burst".
 LAUNCHED_BY = {
@@ -50,6 +56,7 @@ LAUNCHED_BY = {
     "compute_robustness": (("warp_kernel", "n_cmp"),),
     "init_robustness": (("warp_kernel", 2),),
     "merge_tiled": (("merge_kernel", None),),
+    "_merge_burst_chunked": (("merge_burst_kernel", None),),
 }
 
 
@@ -81,6 +88,7 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=4000)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pipeline", choices=("scan", "chunked"), default="scan")
     ap.add_argument("--out", default=None, help="also write the table here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -94,16 +102,19 @@ def main(argv=None):
     frames = make_burst(args.height, args.width, args.frames, args.seed, dev)
     std, diff = affine_curves()
     config = burst_config((args.height, args.width), burst_snr(frames[0], std))
+    config["tpu"] = {"pipeline": args.pipeline, "merge_chunk": 5}
     pipe = P.make_pipeline(config, CFA_RGGB, WB, dev)
     run_args = (frames[0], frames[1:], torch.as_tensor(std, device=dev),
                 torch.as_tensor(diff, device=dev))
 
     pipe(*run_args)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipe(*run_args)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        pipe(*run_args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipe(*run_args)
@@ -135,8 +146,9 @@ def main(argv=None):
             stages[stage] = (calls, us + 1e3 * ms * share)
     lines = [smi,
              f"burst {args.frames}x{args.height}x{args.width} x{config.scale}, Ts="
-             f"{config.block_matching.tuning.tile_size}",
-             f"unprofiled warm run: {plain_wall:.4f} s",
+             f"{config.block_matching.tuning.tile_size}, pipeline {args.pipeline}",
+             f"unprofiled warm runs: {', '.join(f'{w:.4f}' for w in walls)} s, "
+             f"median {statistics.median(walls):.4f} s",
              f"profiled run: wall {wall:.4f} s, kernel-only device time "
              f"{busy_ms:.2f} ms over {n_launch} launches, busy share "
              f"{busy_ms / (wall * 1e3):.3f} of the profiled wall",
@@ -150,6 +162,10 @@ def main(argv=None):
     lines.append("heaviest device rows (self device ms, calls):")
     for e in sorted(kernels, key=lambda e: -_self_device_us(e))[:30]:
         lines.append(f"  {e.key[:80]:80s} {_self_device_us(e) / 1e3:9.2f} {e.count:6d}")
+    lines.append("heaviest host rows (self CPU ms, calls):")
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
+        lines.append(f"  {e.key[:80]:80s} {e.self_cpu_time_total / 1e3:9.2f} {e.count:6d}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -47,10 +47,13 @@ def burst_config(shape, snr, scale=2, debug=False, alpha=ALPHA, beta=BETA):
     return c
 
 
-def make_burst(h, w, n_frames, seed, device, alpha=ALPHA, beta=BETA):
+def make_burst(h, w, n_frames, seed, device, alpha=ALPHA, beta=BETA,
+               brightness=None):
     """(n_frames, h, w) float32 raw frames on ``device``: a blocky random
-    scene Gaussian-blurred (sigma 4, spectral), exact sub-pixel shifts in
-    [-3, 3] px by spectral phase ramps (frame 0 unshifted), affine noise
+    scene Gaussian-blurred (sigma 4, spectral) and scaled to [0.1, 0.9], or
+    to [0.2, 1.8] x ``brightness`` for the dark cells (``bench.py``'s
+    ``make_burst``: 0.07 gives Ts=32, 0.02 Ts=64); exact sub-pixel shifts
+    in [-3, 3] px by spectral phase ramps (frame 0 unshifted), affine noise
     ``std^2 = alpha * I + beta``, clipped to [0, 1]."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -62,7 +65,8 @@ def make_burst(h, w, n_frames, seed, device, alpha=ALPHA, beta=BETA):
     img = torch.fft.ifft2(torch.fft.fft2(img) * torch.exp(
         -2.0 * math.pi ** 2 * 16.0 * (fy * fy + fx * fx))).real
     img = (img - img.min()) / (img.max() - img.min() + 1e-9)
-    spec = torch.fft.fft2(0.1 + 0.8 * img)
+    lo, span = (0.1, 0.8) if brightness is None else (0.2 * brightness, 1.6 * brightness)
+    spec = torch.fft.fft2(lo + span * img)
     shifts = torch.rand((n_frames, 2), generator=g, device=device, dtype=f64) * 6 - 3
     shifts[0] = 0
     frames = torch.empty((n_frames, h, w), dtype=torch.float32, device=device)

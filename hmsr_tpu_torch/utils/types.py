@@ -2,9 +2,11 @@
 
 float32 everywhere on the compute path, as in :mod:`hmsr_tpu.utils.types`.
 
-Every function that creates tensors takes an explicit ``device`` (or derives
-it from its tensor inputs). There is no automatic pick: asking for CUDA on a
-host without it raises instead of running on the CPU.
+The entry points (``make_pipeline``, ``process``, ``process_arrays``,
+``process_burst``) run on the card unless the caller asks for the CPU: their
+``device`` defaults to ``"cuda"``. Other functions derive the device from
+their tensor inputs. There is no automatic pick: asking for CUDA on a host
+without it raises instead of running on the CPU.
 """
 
 import torch

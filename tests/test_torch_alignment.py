@@ -201,6 +201,6 @@ def test_cpu_wrappers_launch_no_kernel():
     terms = cuda_ica.solve_terms(grads.hessian)
     for bm in (False, True):
         cuda_ica.ica_fused(t(ref), grads.gradx, grads.grady, terms, t(mov), flow, 16, 3, bm)
-    assert kernel_counts() == before == (0,) * 5
+    assert kernel_counts() == before == (0,) * 6
     with pytest.raises(ValueError):
         cuda_ica.block_match(t(_tiles(ref, 16)), t(mov), flow.double(), 16, 4, "L2")

@@ -8,6 +8,7 @@ mean|d| < 1e-4 and max|d| < 1e-3 on the interior [8:-8, 8:-8].
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -44,13 +45,46 @@ def test_e2e_against_jax_scan(cfg):
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
     assert np.abs(n(dbg_t["robustness"]) - np.asarray(dbg_j["robustness"])).max() < 1e-3
-    assert kernel_counts() == (0,) * 5     # CPU tensors: plain versions only
+    # robustness.save_mask (on by default): the sum of the 3 frames' maps,
+    # within the per-frame robustness tolerance times the number of frames
+    assert config.robustness.save_mask
+    d_acc = np.abs(n(dbg_t["accumulated_robustness"])
+                   - np.asarray(dbg_j["accumulated_robustness"]))
+    assert d_acc.max() < 1e-3 * len(comps)
+    assert kernel_counts() == (0,) * 6     # CPU tensors: plain versions only
 
 
-def test_port_imports_no_jax():
-    """In a fresh interpreter: import the port and run the 128^2 slice on
-    the CPU with the port's own configuration and burst; neither JAX nor the
-    JAX package may be loaded."""
+def test_chunked_against_jax_scan_and_port_scan():
+    """The chunked pipeline (4 frames in chunks of 3 and 1: one burst merge
+    of each length) against the JAX scan pipeline with the e2e criteria, and
+    against the port's own scan pipeline exactly."""
+    size = 128
+    config = small_config(size)
+    config.debug = True
+    ref, comps, _, _ = make_synthetic_burst(size, size, n_frames=5, seed=3)
+    std, diff = curves()
+    img_j, dbg_j = j_make_pipeline(config, DEFAULT_CFA, WB)(
+        jnp.asarray(ref), jnp.asarray(comps), jnp.asarray(std), jnp.asarray(diff))
+    img_s, dbg_s = make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std, diff)
+    config.tpu.pipeline = "chunked"
+    config.tpu.merge_chunk = 3
+    img_c, dbg_c = make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std, diff)
+
+    assert torch.equal(img_c, img_s)
+    assert dbg_c.keys() == dbg_s.keys() == {"flow", "robustness", "accumulated_robustness"}
+    assert all(torch.equal(dbg_c[k], dbg_s[k]) for k in dbg_s)
+    d_img = np.abs(n(img_c) - np.asarray(img_j))[8:-8, 8:-8]
+    assert np.abs(n(dbg_c["flow"]) - np.asarray(dbg_j["flow"])).max() < 1e-2
+    assert d_img.mean() < 1e-4
+    assert d_img.max() < 1e-3
+    assert kernel_counts() == (0,) * 6
+
+
+def test_port_imports_no_jax(tmp_path):
+    """In a fresh interpreter: import the port, run the 128^2 slice on the
+    CPU with the port's own configuration and burst, then ``process_arrays``
+    on it (Monte-Carlo noise curves, finishing, orientation); neither JAX nor
+    the JAX package may be loaded."""
     code = (
         "import sys, numpy as np\n"
         "import hmsr_tpu_torch\n"
@@ -69,12 +103,25 @@ def test_port_imports_no_jax():
         "(frames[0], frames[1:], std, diff)\n"
         "assert tuple(img.shape) == (256, 256, 3)\n"
         "assert bool(np.isfinite(img[8:-8, 8:-8].numpy()).all())\n"
+        "from hmsr_tpu_torch.models.process import process_arrays\n"
+        "from hmsr_tpu_torch.noise import fast_monte_carlo\n"
+        "fast_monte_carlo.DISK_CACHE_DIR = sys.argv[1]\n"
+        "config = configs.default_config()\n"
+        "config.update(scale=2, verbose=0, tpu={'pipeline': 'chunked'})\n"
+        "config.noise_model.update(alpha=syn.ALPHA, beta=syn.BETA)\n"
+        "config.block_matching.tuning.update(factors=[1, 2], tile_size_factors=[1, 1],\n"
+        "    search_radii=[1, 4], metrics=['L1', 'L2'])\n"
+        "img, dbg = process_arrays(frames[0], frames[1:], config, orientation=6,\n"
+        "                          device='cpu')\n"
+        "assert tuple(img.shape) == (256, 256, 3), img.shape\n"
+        "assert tuple(dbg['accumulated_robustness'].shape) == (128, 128)\n"
+        "assert 0 <= float(img.min()) and float(img.max()) <= 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hmsr_tpu')]\n"
         "assert not bad, bad\n"
         "print('NOJAX-OK')\n")
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "NOJAX-OK" in res.stdout
 
@@ -144,11 +191,21 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in res.stdout
 
 
+PROCESS_CHANGES = ["host_finishing", "auto_tonemap_with_cv2", "mesh", "median_denoiser",
+                   "gauss_denoiser", "merge_denoiser"]
+
+
 @pytest.mark.parametrize("change", ["decimating", "scale1.5", "acc_rob", "grey_mode",
-                                    "fused_pipeline", "iso_kernel"])
-def test_unported_configurations_raise(change):
+                                    "fused_pipeline", "iso_kernel", "vmapped_pipeline"]
+                         + PROCESS_CHANGES)
+def test_unported_configurations_raise(change, monkeypatch):
+    """What the slice lacks raises ``NotImplementedError``: in
+    ``make_pipeline``, and in ``process_arrays`` before any work for what only
+    the process layer reads (finishing, mesh, the denoisers)."""
     config = small_config(128)
-    if change == "decimating":
+    if change == "vmapped_pipeline":
+        config.tpu.pipeline = "vmapped"
+    elif change == "decimating":
         config.grey_method = "decimating"
     elif change == "scale1.5":
         config.scale = 1.5
@@ -158,7 +215,22 @@ def test_unported_configurations_raise(change):
         config.mode = "grey"
     elif change == "fused_pipeline":
         config.tpu.pipeline = "fused"
-    else:
+    elif change == "iso_kernel":
         config.merging.kernel = "iso"
+    elif change == "host_finishing":
+        config.tpu.finishing_impl = "host"
+    elif change == "auto_tonemap_with_cv2":      # "auto" picks the Mertens fusion
+        monkeypatch.setitem(sys.modules, "cv2", types.ModuleType("cv2"))
+        config.tpu.finishing_impl = "auto"
+        config.postprocessing.do_tonemapping = True
+    elif change == "mesh":
+        config.tpu.mesh = [2, 1]
+    else:
+        config.accumulated_robustness_denoiser[change.split("_")[0]].enabled = True
     with pytest.raises(NotImplementedError):
-        make_pipeline(config, DEFAULT_CFA, WB, "cpu")
+        if change in PROCESS_CHANGES:
+            from hmsr_tpu_torch.models.process import process_arrays
+            frames = np.zeros((3, 128, 128), np.float32)
+            process_arrays(frames[0], frames[1:], config, device="cpu")
+        else:
+            make_pipeline(config, DEFAULT_CFA, WB, "cpu")

@@ -78,4 +78,5 @@ def kernel_counts():
     from hmsr_tpu_torch.ops import cuda_ica, cuda_merge, cuda_warp
     return (cuda_ica.block_match.launches, cuda_ica.ica_step.launches,
             cuda_ica.ica_fused.launches, cuda_warp.upscale_warp.launches,
-            cuda_merge.merge_accumulate.launches)
+            cuda_merge.merge_accumulate.launches,
+            cuda_merge.merge_burst_accumulate.launches)
