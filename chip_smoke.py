@@ -11,14 +11,20 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the six kernels (K1 block matching, K2 ICA step, K3 fused ICA,
-   K4 upscale-warp, K5 merge, K5' burst-fused merge) from
-   ``hmsr_tpu_torch/csrc`` and print the build seconds;
+1. build the six kernels of the path (K1 block matching, K2 ICA step, K3
+   fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge) and the
+   probes P1 and P2 from ``hmsr_tpu_torch/csrc``; print the build seconds,
+   each kernel's registers, static shared memory and spills from the
+   build's kept ``-Xptxas -v`` report, the launch layout of a K5/K5' block
+   per (Ts, scale) as the library computes it, and the static SASS
+   instructions of K5 and K5' (``cuobjdump -sass`` of the library), in all
+   and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
    levels at Ts=16, 32 and 64, K4, K5 and K5' (5 frames) at Ts=16, 32 and
-   64, K5' also against 5 K5 launches (bit for bit); max|d|, the median
-   time of kernel and plain version (CUDA events) and the bound;
+   64, K5' also against 5 K5 launches (bit for bit); then K5 and K5' at
+   scales 1 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
+   median time of kernel and plain version (CUDA events) and the bound;
 3. the 512x512 8-frame slice on the card against the slice on the CPU, in
    the scan and the chunked form (chunks of 3: the last one shorter): flow
    max|d| < 1e-2, image mean|d| < 1e-4 and max|d| < 1e-3 on the interior;
@@ -32,7 +38,11 @@ and power limit:
    equal; shape, finite interior, peak memory;
 6. the dark cells through ``process_arrays`` (scan): bursts of brightness
    0.07 and 0.02, which must resolve Ts=32 and Ts=64 from their SNR;
-   launch counts asserted, finite interior, times.
+   launch counts asserted, finite interior, times;
+7. the probes, which are not on the path: P1 (per-block fixed cost: empty,
+   staging and arithmetic bodies over 16k and 64k blocks) and P2 (row-block
+   sum of the grey image and its pyramid level 2) against their plain
+   versions (:mod:`hmsr_tpu_torch.probe_cta_cost`).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The script imports neither
@@ -40,6 +50,8 @@ JAX nor the JAX package ``hmsr_tpu``.
 """
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,13 +60,14 @@ import time
 import numpy as np
 import torch
 
-from hmsr_tpu_torch import configs
+from hmsr_tpu_torch import configs, probe_cta_cost
+from hmsr_tpu_torch.measure import bound, card, timed
 from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_sizes,
                                              init_alignment)
 from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.pipeline import make_pipeline
 from hmsr_tpu_torch.models.process import process_arrays
-from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_warp
+from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
 from hmsr_tpu_torch.ops.grey import compute_grey_image
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, CFA_RGGB, WB, affine_curves,
@@ -76,6 +89,14 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
             cuda_merge.merge_burst_accumulate, "hmsr_tpu_torch/csrc/merge_burst.cu",
             "hmsr_tpu/ops/pallas_merge.py:302"),
 }
+#: probes of the JAX package's TPU tools, not on the path (their launch
+#: counts stay out of the path's counts)
+PROBES = {
+    "P1": ("P1 per-block fixed cost (empty body)", cuda_probes.cta_probe,
+           "hmsr_tpu_torch/csrc/probes.cu", "tools/probe_program_cost.py:55"),
+    "P2": ("P2 row-block sum (8-row blocks)", cuda_probes.row_block_sum,
+           "hmsr_tpu_torch/csrc/probes.cu", "tools/probe_l2ica3.py:46"),
+}
 MAIN_TS = 16            # the bright main path's tile size
 CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5)
@@ -86,8 +107,7 @@ BRIGHT_LAUNCHES = {
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB)
 MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0}
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
 CARD = ""               # nvidia-smi name and power limit, set in main()
 
 
@@ -103,30 +123,52 @@ def check_no_reference_imports():
         raise AssertionError(f"modules of JAX or of hmsr_tpu were imported: {bad}")
 
 
-def timed(fn, n=5):
-    """Median milliseconds of ``fn()`` on the card (CUDA events, 1 warm-up)."""
-    fn()
-    times = []
-    for _ in range(n):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(nbytes, flops):
-    """(ms, "bytes" | "operations"): the least time the card could take to
-    move ``nbytes`` of device memory and do ``flops`` float32 operations."""
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
-
-
 def reset_counts():
     for _, fn, _, _ in KERNELS.values():
         fn.launches = 0
+
+
+def sass_counts(names):
+    """``{kernel: (static SASS instructions, those of its longest loop)}``
+    for the kernels ``names`` of the built library (``cuobjdump -sass``);
+    a loop is the span of a backward branch, 16 bytes per instruction."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _build.library_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", text)[1:]:
+        name = _build.demangle(part.split()[0])
+        if name in names:
+            back = [(int(a, 16) - int(b, 16)) // 16 + 1 for a, b in re.findall(
+                r"/\*([0-9a-f]{4,})\*/[^;\n]*?\bBRA(?:\.\w+)*\s+0x([0-9a-f]+)", part)
+                if int(b, 16) < int(a, 16)]
+            out[name] = (len(re.findall(r"/\*[0-9a-f]{4,}\*/\s", part)),
+                         max(back, default=0))
+    return out
+
+
+def phase_build():
+    """Phase 1: build; print each kernel's ptxas resources, the K5/K5'
+    launch layouts and their static SASS counts. Returns the ptxas report."""
+    _build.library()
+    log(f"phase 1 built {len(KERNELS)} kernels of the path and {len(PROBES)} probes in "
+        f"{_build.build_seconds:.2f} s [{CARD}]")
+    with open(_build.ptxas_log) as f:
+        report = _build.ptxas_report(f.read())
+    for name, r in sorted(report.items()):
+        log(f"  ptxas {name}: {r['registers']} registers, {r['smem_bytes']} B static "
+            f"shared memory, spill stores {r['spill_stores']} B, spill loads "
+            f"{r['spill_loads']} B, stack {r['stack_bytes']} B")
+    for key, F in (("K5", 1), ("K5'", CHUNK)):
+        lay = {(Ts, sc): cuda_merge.merge_layout(Ts, sc, F)
+               for Ts in (16, 32, 64) for sc in (1, 2, 3)}
+        log(f"  {key} ({F} frame{'s' if F > 1 else ''}) launch layout: dynamic shared "
+            "memory per block (HR rows per block) " + ", ".join(
+                f"Ts={Ts} x{sc} {g['smem_bytes']} B ({g['rows']})"
+                for (Ts, sc), g in lay.items()))
+    for name, (n, loop) in sass_counts(set(MERGE_KERNELS.values())).items():
+        log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
+    return report
 
 
 def counts():
@@ -296,10 +338,13 @@ def check_warp_kernel(device, raw_shape, Ts, rng, stats, time_plain):
 MERGE_FLOPS = 9 * 13 + 25
 
 
-def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK):
+def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
+                        s=2):
     """K5 on one frame and K5' on a chunk of F frames against their plain
-    versions (1e-5 relative), and K5' against F K5 launches (bit for bit)."""
+    versions (1e-5 relative), and K5' against F K5 launches (bit for bit),
+    at scale ``s``; entries count for the main path only at s=2."""
     H, W = raw_shape
+    main = 1 if s == 2 else 0
     config = burst_config(raw_shape, 40)
     comp = torch.stack([torch.as_tensor(np.clip(
         blocky_scene(rng, H, W, 4) + 0.02 * rng.randn(H, W), 0, 1).astype(np.float32),
@@ -307,8 +352,8 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK):
     covs = torch.stack([estimate_kernels(c, config) for c in comp]).contiguous()
     flows = random_flow(rng, H, W, Ts, device, lead=(F,))
     r = torch.as_tensor(rng.rand(F, H, W).astype(np.float32), device=device)
-    base_n = torch.as_tensor(rng.rand(3, 2 * H, 2 * W).astype(np.float32), device=device)
-    base_d = torch.as_tensor(rng.rand(3, 2 * H, 2 * W).astype(np.float32), device=device)
+    base_n = torch.as_tensor(rng.rand(3, s * H, s * W).astype(np.float32), device=device)
+    base_d = torch.as_tensor(rng.rand(3, s * H, s * W).astype(np.float32), device=device)
     acc_bytes = 2 * nbytes(base_n, base_d)              # read and written once
     frame_bytes = nbytes(comp[0], covs[0], flows[0], r[0])
     px = base_n[0].numel()
@@ -321,30 +366,31 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK):
     merge_args = (comp[0], flows[0], covs[0], r[0])
     n_k, d_k = base_n.clone(), base_d.clone()
     n_p, d_p = base_n.clone(), base_d.clone()
-    cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, 2)
-    cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, 2)
+    cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, s)
+    cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, s)
     err_n, err_d, err = rel_errs(n_k, d_k, n_p, d_p)
     ms_k = timed(lambda: cuda_merge.merge_accumulate(*merge_args, n_k, d_k,
-                                                     CFA_RGGB, Ts, 2))
+                                                     CFA_RGGB, Ts, s))
     ms_p = timed(lambda: cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB,
-                                                Ts, 2), n=3) \
+                                                Ts, s), n=3) \
         if time_plain else float("nan")
     bnd = bound(acc_bytes + frame_bytes, px * MERGE_FLOPS)
-    log(f"  K5 Ts={Ts} comp {(H, W)} -> num/den {(3, 2 * H, 2 * W)}: rel max|d| num "
-        f"{err_n:.3e} den {err_d:.3e}, kernel {ms_k:.4f} ms, plain {plain_text(ms_p)}, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
+    log(f"  K5 Ts={Ts} x{s} comp {(H, W)} -> num/den {(3, s * H, s * W)}: rel max|d| "
+        f"num {err_n:.3e} den {err_d:.3e}, kernel {ms_k:.4f} ms, plain "
+        f"{plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
     if not (err_n <= 1e-5 and err_d <= 1e-5):
-        raise AssertionError(f"K5 Ts={Ts}: relative errors {err_n:.3e} / {err_d:.3e}")
-    record(stats, "K5", Ts, 1, err, ms_k, ms_p, bnd)
+        raise AssertionError(f"K5 Ts={Ts} x{s}: relative errors {err_n:.3e} / "
+                             f"{err_d:.3e}")
+    record(stats, "K5", Ts, main, err, ms_k, ms_p, bnd)
     del n_k, d_k, n_p, d_p
 
     burst_args = (comp, flows, covs, r)
     n_b, d_b = base_n.clone(), base_d.clone()
-    cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b, CFA_RGGB, Ts, 2)
+    cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b, CFA_RGGB, Ts, s)
     n_s, d_s = base_n.clone(), base_d.clone()
     for f in range(F):
         cuda_merge.merge_accumulate(comp[f], flows[f], covs[f], r[f], n_s, d_s,
-                                    CFA_RGGB, Ts, 2)
+                                    CFA_RGGB, Ts, s)
     d_seq = max(nan_max_abs(n_b, n_s), nan_max_abs(d_b, d_s))
     same = torch.equal(n_b, n_s) and torch.equal(d_b, d_s)
     del n_s, d_s
@@ -352,28 +398,29 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK):
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    cuda_merge.merge_burst_plain(*burst_args, n_p, d_p, CFA_RGGB, Ts, 2)
+    cuda_merge.merge_burst_plain(*burst_args, n_p, d_p, CFA_RGGB, Ts, s)
     t1.record()
     torch.cuda.synchronize()
     err_n, err_d, err = rel_errs(n_b, d_b, n_p, d_p)
     del n_p, d_p
     ms_b = timed(lambda: cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b,
-                                                           CFA_RGGB, Ts, 2))
+                                                           CFA_RGGB, Ts, s))
     ms_seq = timed(lambda: [cuda_merge.merge_accumulate(
-        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, 2) for f in range(F)])
+        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, s) for f in range(F)])
     ms_p = t0.elapsed_time(t1) if time_plain else float("nan")
     bnd = bound(acc_bytes + F * frame_bytes, F * px * MERGE_FLOPS)
-    log(f"  K5' Ts={Ts} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
+    log(f"  K5' Ts={Ts} x{s} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
         f"(bit-identical: {same}); against its plain version rel max|d| num "
         f"{err_n:.3e} den {err_d:.3e}; kernel {ms_b:.4f} ms per launch, {F} x K5 "
         f"{ms_seq:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
         f"[{CARD}]")
     if not (same and err_n <= 1e-5 and err_d <= 1e-5):
-        raise AssertionError(f"K5' Ts={Ts}: against K5 max|d| {d_seq:.3e}, relative "
-                             f"errors {err_n:.3e} / {err_d:.3e}")
+        raise AssertionError(f"K5' Ts={Ts} x{s}: against K5 max|d| {d_seq:.3e}, "
+                             f"relative errors {err_n:.3e} / {err_d:.3e}")
     # per frame of the main path, as the other entries
-    stats["K5'"].append(dict(Ts=Ts, per_frame=1.0 / F, err=err, ms=ms_b, plain_ms=ms_p,
-                             bound_ms=bnd[0], bound_by=bnd[1], seq_ms=ms_seq))
+    stats["K5'"].append(dict(Ts=Ts, per_frame=main / F, err=err, ms=ms_b,
+                             plain_ms=ms_p, bound_ms=bnd[0], bound_by=bnd[1],
+                             seq_ms=ms_seq))
 
 
 def phase_kernels(device, raw_shape, seed=1):
@@ -387,6 +434,9 @@ def phase_kernels(device, raw_shape, seed=1):
     for Ts in (16, 32, 64):
         check_warp_kernel(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
         check_merge_kernels(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
+    for s in (1, 3):
+        for Ts in (16, 32, 64):
+            check_merge_kernels(device, (1024, 1024), Ts, rng, stats, False, s=s)
     return stats
 
 
@@ -605,17 +655,13 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke test needs a CUDA card")
     device = "cuda"
-    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    CARD = card()
     log(CARD)
     log(f"phase 0 torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
 
-    _build.library()
-    log(f"phase 1 built {len(KERNELS)} kernels in {_build.build_seconds:.2f} s "
-        f"[{CARD}]")
+    ptxas = phase_build()
 
     log("phase 2 kernels against their plain versions (main-path shapes)")
     stats = phase_kernels(device, (3000, 4000))
@@ -627,8 +673,11 @@ def main():
     launches["K5'"] = proc["chunked"]["launches"]["K5'"]
     del frames, proc
     phase_dark(device)
+    log("phase 7 the probes P1 and P2 against their plain versions")
+    p1, p1_ns = probe_cta_cost.run_p1(device, (16384, 65536), log=log, tag=CARD)
+    p2 = probe_cta_cost.run_p2(device, log=log, tag=CARD)
     check_no_reference_imports()
-    log(f"phases 0-6 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-7 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
@@ -650,7 +699,18 @@ def main():
             "library_ms": None}
         if key == "K5'":
             entry["k5_sequential_ms"] = per_frame("seq_ms")
+        if key in MERGE_KERNELS:
+            entry["registers"] = ptxas[MERGE_KERNELS[key]]["registers"]
         entries.append(entry)
+    # the probes: not on the path (0 launches there); P1 at its largest grid
+    for key, row in (("P1", p1["empty"][-1]), ("P2", p2[-1])):
+        name, _, src, rep = PROBES[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": 0, "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    entries[-2]["ns_per_block"] = p1_ns
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -171,9 +171,137 @@ inline int ica_threads(int ts) {
   return ts * ts < 256 ? ((ts * ts + 31) / 32) * 32 : 256;
 }
 
+
 // ---------------------------------------------------------------------------
 // Merge accumulation (K5, and every frame of K5')
 // ---------------------------------------------------------------------------
+//
+// Semantics of hmsr_tpu/models/merge_tiled.py:merge_tiled (Bayer, steerable
+// kernel, integer scale s), for HR pixel (R, C) of a non-reference frame:
+//   - the flow is constant per (Ts*s)^2 HR tile; the 3x3 raw neighbourhood is
+//     centred at (Sy + 1) + (r_loc + ph_y) // s with Sy = floor_div(ty*B +
+//     floor(0.5 + s*fy), s) - 1; values come from the tile window at the
+//     CLIPPED origin Syc (zero outside the frame), and a clipped tile is
+//     invalid as a whole (ok_tile);
+//   - the covariance is bilinearly interpolated on the grey grid from the
+//     window at the clipped origin S2yc; index -1 holds the linear
+//     extrapolation 2 c[0] - c[1] (per axis, rows first), beyond it edge
+//     values;
+//   - the 2x2 inverse is unguarded; w = exp(-1/2 max(0, d^T Omega^-1 d)) * r;
+//   - the CFA channel comes from the floor parity of the sample's raw row
+//     and column.
+//
+// A merge block owns `rows` HR rows of one HR tile (all of it at Ts=16, x2).
+// merge_stage() writes one frame's share of the tile into a shared-memory
+// buffer: the tile-uniform values once, a table entry per HR row and per HR
+// column (what the pixel derives from its row or column alone), and the
+// raw, covariance and robustness windows, the covariance padding resolved.
+// merge_pixel() is then what truly varies per pixel. Every float is computed
+// with the operations, in the order, of merge_plain's per-pixel form, so
+// the staging changes no bit of the result.
+
+constexpr int MERGE_THREADS = 256;
+// HR pixels per thread. On an H100, 1 was the slowest for both kernels
+// (four blocks stage the same tile at Ts=16, x2), 2 and 4 level for K5,
+// 4 the fastest for K5'.
+constexpr int MERGE_PPT = 4;
+
+// What a pixel takes from its HR row (or column) r_loc of the tile.
+struct __align__(16) MergeAxis {
+  int q;          // 3x3 taps at raw window row (column) q + 1 + d, d = -1..1
+  int q2;         // covariance cell at window row (column) q2, q2 + 1
+  int rob;        // index in the staged robustness window; -1 when the
+                  // centre is outside the frame (rows: or the tile clipped)
+  int par;        // floor parity of the centre's raw row (column)
+  float frac;     // covariance bilinear fraction
+  float dist[3];  // tap coordinate minus the moved centre, per d
+  float in[3];    // 1 where tap d lies in the frame, else 0
+  float pad_;
+};
+
+// Staged window sizes of a block of `rows` HR rows: the raw window is Ts+3
+// columns wide and the covariance windows Ts/2+2; their rows, and the
+// robustness rows, are those the block's HR rows reach.
+struct MergeWindows {
+  int RW, RWr, CW, CWr, RR;
+};
+
+__host__ __device__ inline MergeWindows merge_windows(int Ts, int s,
+                                                      int rows) {
+  MergeWindows w;
+  w.RW = Ts + 3;
+  const int raw_rows = (rows - 1 + s - 1) / s + 3;
+  const int cov_rows = (rows - 1 + 2 * s - 1) / (2 * s) + 2;
+  w.CW = Ts / 2 + 2;
+  w.RWr = raw_rows < w.RW ? raw_rows : w.RW;
+  w.CWr = cov_rows < w.CW ? cov_rows : w.CW;
+  w.RR = (rows - 1 + s - 1) / s + 1;
+  return w;
+}
+
+// Floats of one staged frame: the row and column tables and the windows,
+// rounded up to 16 bytes.
+__host__ __device__ inline int merge_buffer_floats(int Ts, int s, int rows) {
+  const MergeWindows w = merge_windows(Ts, s, rows);
+  const int n = 12 * (rows + Ts * s) + w.RWr * w.RW + 3 * w.CWr * w.CW +
+                w.RR * Ts;
+  return (n + 3) / 4 * 4;
+}
+
+// Launch layout of K5 (F = 1) and of K5' over F frames: a block covers
+// `rows` HR rows of one (Ts*s)^2 HR tile, at most MERGE_THREADS * MERGE_PPT
+// pixels, in `bands` blocks per tile; its dynamic shared memory holds one
+// staged frame of `buf_floats` floats, two when K5' has more than one frame.
+struct MergeLayout {
+  int rows, bands, buf_floats, smem_bytes;
+};
+
+inline MergeLayout merge_layout(int Ts, int s, int F) {
+  const int B = Ts * s;
+  const int fit = MERGE_THREADS * MERGE_PPT / B;
+  MergeLayout L;
+  L.rows = fit < 1 ? 1 : (fit > B ? B : fit);
+  L.bands = (B + L.rows - 1) / L.rows;
+  L.buf_floats = merge_buffer_floats(Ts, s, L.rows);
+  L.smem_bytes = (F > 1 ? 2 : 1) * 4 * L.buf_floats;
+  return L;
+}
+
+// Row (or column) r_loc of tile t along an axis of n raw pixels: f is the
+// tile's flow, S/ph and S2/ph2 the raw and covariance window origins and
+// phases, qbase/q2base the first staged raw and covariance window rows
+// (columns: 0) and rbase the first staged robustness row (column).
+__device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
+                                                int n, float f, int S, int ph,
+                                                int S2, int ph2, int qbase,
+                                                int q2base, int rbase,
+                                                bool ok) {
+  const int g = 2;
+  const int B = Ts * s;
+  const int sg = s * g;
+  const float sf = (float)s;
+  const int R = t * B + r_loc;
+  MergeAxis a;
+  const int q = (r_loc + ph) / s;  // non-negative operands
+  const int center = S + 1 + q;
+  const float lr = ((float)R + 0.5f) / sf;
+  const float lr_mov = lr + f;
+  const int q2 = (r_loc + ph2) / sg;
+  a.frac = (lr_mov / (float)g - 0.5f) - (float)(S2 + 1 + q2);
+  a.q = q - qbase;
+  a.q2 = q2 - q2base;
+  const float dist_ref = lr_mov - 0.5f;
+  a.par = floormod(center, 2);
+  for (int d = -1; d <= 1; ++d) {
+    const int i_g = center + d;
+    a.in[d + 1] = (i_g >= 0 && i_g < n) ? 1.0f : 0.0f;
+    a.dist[d + 1] = (float)i_g - dist_ref;
+  }
+  a.pad_ = 0.0f;
+  a.rob = (lr_mov >= 0.0f && lr_mov < (float)n && ok)
+              ? min(R / s, n - 1) - rbase : -1;
+  return a;
+}
 
 // covs_pad semantics of merge_tiled: edge padding, and the linear
 // extrapolation at index -1 along rows, then along columns.
@@ -195,41 +323,63 @@ __device__ __forceinline__ float cov_at(const float* __restrict__ cv, int gh,
   return cov_row(cv, gh, gw, i, j);
 }
 
-// One Bayer frame's contribution at HR pixel (R, C): the kernel-weighted sum
-// of its 3x3 raw taps per CFA channel (vals) and the sum of the weights
-// (accs), in the tap order of merge_plain. K5 adds them to num/den once per
-// launch, K5' once per frame of its chunk: both call this function, so the
-// two cannot drift and F K5 launches equal one K5' launch bit for bit.
-// Semantics of hmsr_tpu/models/merge_tiled.py:merge_tiled (Bayer, steerable
-// kernel, integer scale s):
-//   - the flow is constant per (Ts*s)^2 HR tile; the 3x3 raw neighbourhood is
-//     centred at (Sy + 1) + (r_loc + ph_y) // s with Sy = floor_div(ty*B +
-//     floor(0.5 + s*fy), s) - 1; values come from the tile window at the
-//     CLIPPED origin Syc (zero outside the frame), and a clipped tile is
-//     invalid as a whole (ok_tile);
-//   - the covariance is bilinearly interpolated on the grey grid from the
-//     window at the clipped origin S2yc; index -1 holds the linear
-//     extrapolation 2 c[0] - c[1] (per axis, rows first), beyond it edge
-//     values;
-//   - the 2x2 inverse is unguarded; w = exp(-1/2 max(0, d^T Omega^-1 d)) * r;
-//   - the CFA channel comes from the floor parity of the sample's raw row
-//     and column.
-__device__ __forceinline__ void merge_pixel(
-    const float* __restrict__ comp, int H, int W,
-    const float* __restrict__ flow, int fnx, const float* __restrict__ covs,
-    int gh, int gw, const float* __restrict__ rob, int R, int C, int Ts, int s,
-    int cfa00, int cfa01, int cfa10, int cfa11, float* vals, float* accs) {
+// The CFA channel of each 3x3 tap, for the four floor parities (pi, pj) of
+// the centre's raw row and column: m[2 pi + pj] has bit 9 ch + t set when
+// tap t = 3 (di + 1) + (dj + 1) falls in channel ch. Built on the host from
+// the 2x2 pattern cfa packed as cfa00 | cfa01 << 2 | cfa10 << 4 | cfa11 << 6.
+struct MergeCfa {
+  int m[4];
+};
+
+inline MergeCfa merge_cfa_masks(int cfa) {
+  MergeCfa c;
+  for (int pq = 0; pq < 4; ++pq) {
+    int m = 0;
+    for (int t = 0; t < 9; ++t) {
+      const int pi = ((pq >> 1) + t / 3 - 1) & 1;
+      const int pj = ((pq & 1) + t % 3 - 1) & 1;
+      m |= 1 << (9 * ((cfa >> (2 * (2 * pi + pj))) & 3) + t);
+    }
+    c.m[pq] = m;
+  }
+  return c;
+}
+
+// 4-byte asynchronous copy from global to shared memory; src_bytes 0 writes
+// a zero and reads nothing.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// The flow (x, y) of tile (ty, tx).
+__device__ __forceinline__ float2 merge_flow(const float* __restrict__ flow,
+                                             int fnx, int ty, int tx) {
+  return make_float2(flow[2 * (ty * fnx + tx)], flow[2 * (ty * fnx + tx) + 1]);
+}
+
+// Stages one frame's share of HR tile (ty, tx) at flow fl, HR rows r0 ..
+// r0+rows-1 of the tile, into buf (merge_buffer_floats(Ts, s, rows) floats).
+// All threads of the block take part. The tables are written directly; the
+// windows are copied with cp.async (zero-filled outside the frame), except
+// the covariance entries at index -1, which are extrapolated here (border
+// tiles only). merge_stage_wait() completes the copies for the block.
+__device__ __forceinline__ void merge_stage(
+    float* buf, const float* __restrict__ comp, int H, int W, float2 fl,
+    const float* __restrict__ covs, int gh, int gw,
+    const float* __restrict__ rob, int ty, int tx, int r0, int rows, int Ts,
+    int s) {
   const int g = 2;
   const int B = Ts * s;
-  const int ty = R / B;
-  const int tx = C / B;
-  const int rl_y = R - ty * B;
-  const int rl_x = C - tx * B;
-  const float fx = flow[2 * (ty * fnx + tx)];
-  const float fy = flow[2 * (ty * fnx + tx) + 1];
+  const int sg = s * g;
   const float sf = (float)s;
+  const float fx = fl.x;
+  const float fy = fl.y;
 
-  // ---- raw window bookkeeping
+  // ---- tile-uniform values: window origins, clipped origins, phases
   const int WIN = Ts + 4;
   const int PAD = WIN + 1;
   const int base_y = ty * B + (int)floorf(__fadd_rn(0.5f, __fmul_rn(sf, fy)));
@@ -241,22 +391,6 @@ __device__ __forceinline__ void merge_pixel(
   const int Syc = clampi(Sy, -PAD, H + PAD - WIN);
   const int Sxc = clampi(Sx, -PAD, W + PAD - WIN);
   const bool ok_tile = (Syc == Sy) && (Sxc == Sx);
-  const int q_y = (rl_y + ph_y) / s;  // non-negative operands
-  const int q_x = (rl_x + ph_x) / s;
-  const int center_i = Sy + 1 + q_y;
-  const int center_j = Sx + 1 + q_x;
-
-  const float lr_y = ((float)R + 0.5f) / sf;
-  const float lr_x = ((float)C + 0.5f) / sf;
-  const float lr_mov_y = lr_y + fy;
-  const float lr_mov_x = lr_x + fx;
-  const bool inb_center = lr_mov_y >= 0.0f && lr_mov_y < (float)H &&
-                          lr_mov_x >= 0.0f && lr_mov_x < (float)W && ok_tile;
-  const float local_r =
-      rob[(size_t)min(R / s, H - 1) * W + min(C / s, W - 1)];
-
-  // ---- covariance interpolation
-  const int sg = s * g;
   const int CWIN = Ts / g + 4;
   const int CPAD = CWIN + 1;
   const float halfsg = 0.5f * (float)sg;
@@ -270,22 +404,99 @@ __device__ __forceinline__ void merge_pixel(
   const int ph2_x = base2_x - sg * (S2x + 1);
   const int S2yc = clampi(S2y, -CPAD, gh + CPAD - CWIN);
   const int S2xc = clampi(S2x, -CPAD, gw + CPAD - CWIN);
-  const int q2_y = (rl_y + ph2_y) / sg;
-  const int q2_x = (rl_x + ph2_x) / sg;
-  const float frac_y = (lr_mov_y / (float)g - 0.5f) - (float)(S2y + 1 + q2_y);
-  const float frac_x = (lr_mov_x / (float)g - 0.5f) - (float)(S2x + 1 + q2_x);
-  const int ci = S2yc + 1 + q2_y;
-  const int cj = S2xc + 1 + q2_x;
+  const int rbase_y = min(ty * Ts + r0 / s, H - 1);
+  const int rbase_x = min(tx * Ts, W - 1);
+
+  const MergeWindows w = merge_windows(Ts, s, rows);
+  const int qbase = (r0 + ph_y) / s;
+  const int q2base = (r0 + ph2_y) / sg;
+  MergeAxis* rowt = reinterpret_cast<MergeAxis*>(buf);
+  MergeAxis* colt = rowt + rows;
+  float* raw = reinterpret_cast<float*>(colt + B);
+  float* cov = raw + w.RWr * w.RW;
+  float* rb = cov + 3 * w.CWr * w.CW;
+  const int nr = min(rows, B - r0);
+  for (int i = threadIdx.x; i < nr + B; i += blockDim.x) {
+    if (i < nr) {
+      rowt[i] = merge_axis(r0 + i, ty, Ts, s, H, fy, Sy, ph_y, S2y, ph2_y,
+                           qbase, q2base, rbase_y, ok_tile);
+    } else {
+      colt[i - nr] = merge_axis(i - nr, tx, Ts, s, W, fx, Sx, ph_x, S2x, ph2_x,
+                                0, 0, rbase_x, true);
+    }
+  }
+  // the raw window at the clipped origin, from the band's first row; zero
+  // outside the frame
+  const int RW = w.RW, CW = w.CW, CWr = w.CWr;
+  for (int p = threadIdx.x; p < w.RWr * RW; p += blockDim.x) {
+    const int y = Syc + qbase + p / RW;
+    const int x = Sxc + p % RW;
+    const bool in = y >= 0 && y < H && x >= 0 && x < W;
+    cp_async_f32(raw + p, in ? comp + (size_t)y * W + x : comp, in ? 4 : 0);
+  }
+  // covariance windows from row S2yc+1 (+ the band's first) and column
+  // S2xc+1, padding resolved: cov_at is the edge-clamped entry, except at
+  // index -1
+  for (int p = threadIdx.x; p < 3 * CWr * CW; p += blockDim.x) {
+    const int k = p / (CWr * CW);
+    const int e = p - k * CWr * CW;
+    const int i = S2yc + 1 + q2base + e / CW;
+    const int j = S2xc + 1 + e % CW;
+    const float* cv = covs + (size_t)k * gh * gw;
+    if (i == -1 || j == -1) {
+      cov[p] = cov_at(cv, gh, gw, i, j);
+    } else {
+      cp_async_f32(cov + p,
+                   cv + (size_t)clampi(i, 0, gh - 1) * gw + clampi(j, 0, gw - 1),
+                   4);
+    }
+  }
+  for (int p = threadIdx.x; p < w.RR * Ts; p += blockDim.x) {
+    const int y = min(rbase_y + p / Ts, H - 1);
+    const int x = min(rbase_x + p % Ts, W - 1);
+    cp_async_f32(rb + p, rob + (size_t)y * W + x, 4);
+  }
+}
+
+// Completes this thread's copies of merge_stage, then the block's.
+__device__ __forceinline__ void merge_stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// One Bayer frame's contribution at row r (of the staged rows) and column c
+// of the tile: the kernel-weighted sum of its 3x3 raw taps per CFA channel
+// (vals) and the sum of the weights (accs), in the tap order of merge_plain.
+// K5 adds the result to num/den once per launch, K5' once per frame of its
+// chunk: both call merge_stage and this function, so F K5 launches equal
+// one K5' launch bit for bit.
+__device__ __forceinline__ void merge_pixel(const float* buf, int rows, int Ts,
+                                            int s, int r, int c,
+                                            const MergeCfa& cfa, float* vals,
+                                            float* accs) {
+  const int B = Ts * s;
+  const MergeWindows w = merge_windows(Ts, s, rows);
+  const int RW = w.RW, CW = w.CW;
+  const MergeAxis* rowt = reinterpret_cast<const MergeAxis*>(buf);
+  const MergeAxis* colt = rowt + rows;
+  const float* raw = reinterpret_cast<const float*>(colt + B);
+  const float* cov = raw + w.RWr * RW;
+  const float* rb = cov + 3 * w.CWr * CW;
+  const MergeAxis ay = rowt[r];
+  const MergeAxis ax = colt[c];
+
+  // ---- covariance interpolation and inverse
+  const float* cw = cov + ay.q2 * CW + ax.q2;
   float cc[3];
   for (int k = 0; k < 3; ++k) {
-    const float* cv = covs + (size_t)k * gh * gw;
-    const float c00 = cov_at(cv, gh, gw, ci, cj);
-    const float c01 = cov_at(cv, gh, gw, ci, cj + 1);
-    const float c10 = cov_at(cv, gh, gw, ci + 1, cj);
-    const float c11 = cov_at(cv, gh, gw, ci + 1, cj + 1);
-    const float top = c00 + frac_x * (c01 - c00);
-    const float bot = c10 + frac_x * (c11 - c10);
-    cc[k] = top + frac_y * (bot - top);
+    const float* ck = cw + k * w.CWr * CW;
+    const float c00 = ck[0];
+    const float c01 = ck[1];
+    const float c10 = ck[CW];
+    const float c11 = ck[CW + 1];
+    const float top = c00 + ax.frac * (c01 - c00);
+    const float bot = c10 + ax.frac * (c11 - c10);
+    cc[k] = top + ay.frac * (bot - top);
   }
   const float det = cc[0] * cc[2] - cc[1] * cc[1];
   const float inv_det = 1.0f / det;
@@ -293,36 +504,71 @@ __device__ __forceinline__ void merge_pixel(
   const float ixy = -inv_det * cc[1];
   const float iyy = inv_det * cc[0];
 
-  // ---- 3x3 accumulation
-  const float dist_ref_y = lr_mov_y - 0.5f;
-  const float dist_ref_x = lr_mov_x - 0.5f;
-  const float wr = inb_center ? local_r : 0.0f;
+  // ---- 3x3 accumulation. The weight's in-frame factor is the product of
+  // the row's and the column's 0/1 (exactly (inb ? 1 : 0)). Each tap is
+  // added to its CFA channel only, as a predicated add (no branch).
+  const float wr = (ay.rob >= 0 && ax.rob >= 0) ? rb[ay.rob * Ts + ax.rob]
+                                                : 0.0f;
+  const int pq = 2 * ay.par + ax.par;
+  const int m = pq == 0 ? cfa.m[0]
+                        : (pq == 1 ? cfa.m[1] : (pq == 2 ? cfa.m[2] : cfa.m[3]));
   for (int k = 0; k < 3; ++k) {
     vals[k] = 0.0f;
     accs[k] = 0.0f;
   }
   for (int di = -1; di <= 1; ++di) {
-    const int i_g = center_i + di;
-    const bool inb_i = i_g >= 0 && i_g < H;
-    const int pi = floormod(i_g, 2);
-    const float dist_y = (float)i_g - dist_ref_y;
-    const int vy = Syc + 1 + di + q_y;
+    const float dist_y = ay.dist[di + 1];
+    const float* rr = raw + (ay.q + 1 + di) * RW + ax.q + 1;
     for (int dj = -1; dj <= 1; ++dj) {
-      const int j_g = center_j + dj;
-      const bool inb = inb_i && j_g >= 0 && j_g < W;
-      const int pj = floormod(j_g, 2);
-      const float dist_x = (float)j_g - dist_ref_x;
-      const int vx = Sxc + 1 + dj + q_x;
-      const float c = (vy >= 0 && vy < H && vx >= 0 && vx < W)
-                          ? comp[(size_t)vy * W + vx] : 0.0f;
+      const int t = 3 * (di + 1) + (dj + 1);
+      const float dist_x = ax.dist[dj + 1];
+      const float cval = rr[dj];
       float z = ixx * dist_x * dist_x + 2.0f * ixy * dist_x * dist_y +
                 iyy * dist_y * dist_y;
       z = fmaxf(z, 0.0f);
-      const float wgt = expf(-0.5f * z) * wr * (inb ? 1.0f : 0.0f);
-      const int ch = pi == 0 ? (pj == 0 ? cfa00 : cfa01)
-                             : (pj == 0 ? cfa10 : cfa11);
-      vals[ch] += wgt * c;
-      accs[ch] += wgt;
+      const float wgt =
+          expf(-0.5f * z) * wr * (ay.in[di + 1] * ax.in[dj + 1]);
+      const float wc = wgt * cval;
+      for (int k = 0; k < 3; ++k) {
+        if ((m >> (9 * k + t)) & 1) {
+          vals[k] += wc;
+          accs[k] += wgt;
+        }
+      }
     }
   }
+}
+
+// Pixel k of this thread in a merge block: p = threadIdx.x + k *
+// MERGE_THREADS is HR row r = p / B (of the block's nr rows, from HR row R0)
+// and column c = p % B of the tile (from HR column C0), so neighbouring
+// threads take neighbouring columns. r is -1 for a pixel outside the band
+// or the image; o is the pixel's offset in an accumulator plane.
+__device__ __forceinline__ void merge_thread_pixel(int k, int B, int nr, int R0,
+                                                   int C0, int out_h, int out_w,
+                                                   int& r, int& c, size_t& o) {
+  const int p = threadIdx.x + k * MERGE_THREADS;
+  r = p / B;
+  c = p - r * B;
+  const int R = R0 + r;
+  const int C = C0 + c;
+  o = (size_t)R * out_w + C;
+  if (!(r < nr && R < out_h && C < out_w)) r = -1;
+}
+
+// Launch checks shared by the K5 and K5' entry points: sets L to the layout
+// of (Ts, s, F) and raises the dynamic shared-memory limit of `kernel` when
+// its bytes exceed the 48 KB default, which the card refuses beyond its own
+// limit. Returns a cudaError_t.
+template <typename Kernel>
+inline cudaError_t merge_launch_setup(Kernel kernel, int Ts, int s, int F,
+                                      MergeLayout& L) {
+  if (Ts < 2 || Ts % 2 != 0 || s < 1) return cudaErrorInvalidValue;
+  L = merge_layout(Ts, s, F);
+  if (L.smem_bytes > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                L.smem_bytes);
+  }
+  return cudaSuccess;
 }

@@ -1,48 +1,104 @@
 // K5: merge accumulation of one non-reference frame (Alg. 4) into (num, den).
 //
 // Replaces hmsr_tpu/ops/pallas_merge.py:_merge_group_kernel (launched by
-// _merge_frames_pallas through merge_pallas). The per-pixel arithmetic is
-// merge_pixel in common.cuh, shared with K5' (merge_burst.cu).
+// _merge_frames_pallas through merge_pallas). The staging and the per-pixel
+// arithmetic are merge_stage and merge_pixel in common.cuh, shared with K5'
+// (merge_burst.cu).
 //
-// Bound on the H100: device memory — per HR pixel a read-modify-write of 6
-// accumulator floats (48 bytes) against ~120 flops. Design: one thread per HR
-// pixel; each thread owns its num/den entries, so the in-place update has no
-// race and needs no atomics; raw, covariance and robustness taps are shared
-// by neighbouring threads through the caches.
+// Bound on the H100: bytes, per HR pixel a read-modify-write of 6
+// accumulator floats (48 bytes): 0.73 ms at 3000x4000 x2. The work that
+// truly varies per pixel (the covariance interpolation and 2x2 inverse, 9
+// quadratic forms with IEEE expf, the accumulation) is ~450 instructions, so
+// the issue rate sets a second floor of ~0.65 ms, and the two overlap only
+// as far as the SM has warps to switch to. The earlier one-thread-per-
+// pixel form also re-derived, per pixel, the tile's flow, window origins,
+// clipped origins and phases (a dozen integer divisions by run-time
+// values), its row's and column's coordinates (two IEEE divisions) and 12
+// edge-clamped covariance gathers: 2.8 ms.
+//
+// Design: one block of MERGE_THREADS threads per HR tile, or per band of
+// `rows` HR rows of one (MERGE_PPT pixels per thread; merge_layout in
+// common.cuh). Each thread first loads its accumulators (their latency
+// overlaps the staging). merge_stage computes the tile-uniform values once
+// and a table entry per HR row and per HR column, and copies the raw window
+// (zero outside the frame), the covariance windows (the index -1
+// extrapolation resolved) and the robustness rows that the band reaches
+// into shared memory with cp.async; the pixel loop reads only shared
+// memory, has no edge branches, and adds each tap to its CFA channel with
+// predicated adds. Each thread owns its num/den entries: no atomics;
+// neighbouring threads take neighbouring HR columns, so the accumulator
+// traffic is coalesced.
 #include "common.cuh"
 
-__global__ void merge_kernel(const float* __restrict__ comp, int H, int W,
-                             const float* __restrict__ flow, int fnx,
-                             const float* __restrict__ covs, int gh, int gw,
-                             const float* __restrict__ rob,
-                             float* __restrict__ num, float* __restrict__ den,
-                             int out_h, int out_w, int Ts, int s, int cfa00,
-                             int cfa01, int cfa10, int cfa11) {
-  const int C = blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = blockIdx.y;
-  if (C >= out_w) return;
-  float vals[3], accs[3];
-  merge_pixel(comp, H, W, flow, fnx, covs, gh, gw, rob, R, C, Ts, s, cfa00,
-              cfa01, cfa10, cfa11, vals, accs);
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_kernel(const float* __restrict__ comp, int H, int W,
+                 const float* __restrict__ flow, int fnx,
+                 const float* __restrict__ covs, int gh, int gw,
+                 const float* __restrict__ rob, float* __restrict__ num,
+                 float* __restrict__ den, int out_h, int out_w, int Ts, int s,
+                 MergeCfa cfa, int rows, int bands) {
+  extern __shared__ __align__(16) float smem[];
+  const int B = Ts * s;
+  const int tx = blockIdx.x;
+  const int ty = blockIdx.y / bands;
+  const int r0 = (blockIdx.y - ty * bands) * rows;
+  const int nr = min(rows, B - r0);
   const size_t plane = (size_t)out_h * out_w;
-  const size_t o = (size_t)R * out_w + C;
-  for (int k = 0; k < 3; ++k) {
-    num[k * plane + o] += vals[k];
-    den[k * plane + o] += accs[k];
+  // the thread's accumulators are loaded first: their latency overlaps
+  // the staging
+  int pr[MERGE_PPT], pc[MERGE_PPT];
+  size_t po[MERGE_PPT];
+  float n[MERGE_PPT][3], d[MERGE_PPT][3];
+#pragma unroll
+  for (int k = 0; k < MERGE_PPT; ++k) {
+    merge_thread_pixel(k, B, nr, ty * B + r0, tx * B, out_h, out_w, pr[k],
+                       pc[k], po[k]);
+    for (int ch = 0; ch < 3; ++ch) {
+      n[k][ch] = pr[k] >= 0 ? num[ch * plane + po[k]] : 0.0f;
+      d[k][ch] = pr[k] >= 0 ? den[ch * plane + po[k]] : 0.0f;
+    }
+  }
+  merge_stage(smem, comp, H, W, merge_flow(flow, fnx, ty, tx), covs, gh, gw,
+              rob, ty, tx, r0, rows, Ts, s);
+  merge_stage_wait();
+#pragma unroll
+  for (int k = 0; k < MERGE_PPT; ++k) {
+    if (pr[k] >= 0) {
+      float vals[3], accs[3];
+      merge_pixel(smem, rows, Ts, s, pr[k], pc[k], cfa, vals, accs);
+      for (int ch = 0; ch < 3; ++ch) {
+        num[ch * plane + po[k]] = n[k][ch] + vals[ch];
+        den[ch * plane + po[k]] = d[k][ch] + accs[ch];
+      }
+    }
   }
 }
 
+// cfa: the 2x2 pattern packed as in merge_cfa_masks.
 extern "C" int hmsr_merge(const float* comp, int H, int W, const float* flow,
                           int fnx, const float* covs, int gh, int gw,
                           const float* rob, float* num, float* den, int out_h,
-                          int out_w, int Ts, int s, int cfa00, int cfa01,
-                          int cfa10, int cfa11, void* stream) {
-  const int threads = 256;
-  dim3 grid((out_w + threads - 1) / threads, out_h);
-  if (out_h > 0 && out_w > 0) {
-    merge_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, Ts,
-        s, cfa00, cfa01, cfa10, cfa11);
-  }
+                          int out_w, int Ts, int s, int cfa, void* stream) {
+  if (out_h <= 0 || out_w <= 0) return (int)cudaGetLastError();
+  MergeLayout L;
+  const cudaError_t e = merge_launch_setup(merge_kernel, Ts, s, 1, L);
+  if (e != cudaSuccess) return (int)e;
+  const int B = Ts * s;
+  const dim3 grid((out_w + B - 1) / B, (out_h + B - 1) / B * L.bands);
+  merge_kernel<<<grid, MERGE_THREADS, L.smem_bytes, (cudaStream_t)stream>>>(
+      comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, Ts, s,
+      merge_cfa_masks(cfa), L.rows, L.bands);
   return (int)cudaGetLastError();
+}
+
+// The layout hmsr_merge (F = 1) and hmsr_merge_burst use for (Ts, s, F):
+// out = {HR rows per block, blocks per HR tile, dynamic shared memory bytes
+// per block}.
+extern "C" int hmsr_merge_layout(int Ts, int s, int F, int* out) {
+  if (Ts < 2 || Ts % 2 != 0 || s < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const MergeLayout L = merge_layout(Ts, s, F);
+  out[0] = L.rows;
+  out[1] = L.bands;
+  out[2] = L.smem_bytes;
+  return 0;
 }

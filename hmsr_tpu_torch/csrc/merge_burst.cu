@@ -4,73 +4,115 @@
 // Replaces hmsr_tpu/ops/pallas_merge.py:_merge_group_kernel as launched by
 // merge_burst_pallas (frames grid, F > 1; through _merge_frames_pallas and
 // its pallas_call). Semantics: F sequential K5 launches, bit for bit. Each
-// frame's contribution is merge_pixel (common.cuh), the function K5 calls,
-// and it is added to the running sums in frame order (acc = acc + vals_f),
-// the additions K5 makes to num/den in memory.
+// frame's contribution is merge_stage + merge_pixel (common.cuh), the
+// functions K5 calls, and it is added to the running sums in frame order
+// (acc = acc + vals_f), the additions K5 makes to num/den in memory.
 //
-// Bound on the H100: device memory. Per chunk the accumulators cost 48 bytes
-// per HR pixel once (read and write of 6 floats) instead of once per frame,
-// plus each frame's inputs (raw frame and robustness, 8 bytes per raw pixel;
-// covariances, 12 bytes per grey pixel): 2.30 GB + F x 0.13 GB at 3000x4000
-// x2, against ~120 flops per HR pixel and frame. Design: one thread per HR
-// pixel, which loads its six accumulator values into registers, loops over
-// the frames and stores once; no atomics, no shared memory. Raw, covariance
-// and robustness taps come through the caches as in K5. Staging the tile
-// windows in shared memory is left for later.
+// Bound on the H100. In bytes, the accumulators once per launch (48 bytes per
+// HR pixel) plus each frame's inputs (raw frame and robustness, 8 bytes per
+// raw pixel; covariances, 12 bytes per grey pixel): 0.885 ms for 5 frames of
+// 3000x4000 x2. In instructions, the per-pixel work of a frame (~450, 9
+// IEEE expf and one IEEE division among them) needs ~0.65 ms per frame at
+// the card's issue rate, so K5' is issue-bound and stays far from its byte
+// bound. The earlier one-thread-per-pixel form re-derived every tile-, row-
+// and column-uniform value per pixel and frame: 13 ms per 5 frames.
+//
+// Design: K5's block layout and staging (merge.cu); the thread keeps its
+// MERGE_PPT x 6 sums in registers across the frames. Frame f+1's tables are
+// written and its windows copied with cp.async into the second of two
+// shared-memory buffers while frame f is computed from the first (the flow
+// of frame f+2 is loaded meanwhile), so the copies overlap the arithmetic
+// and one barrier per frame separates the buffers.
 #include "common.cuh"
 
-__global__ void merge_burst_kernel(const float* __restrict__ comp, int F,
-                                   int H, int W,
-                                   const float* __restrict__ flow, int fny,
-                                   int fnx, const float* __restrict__ covs,
-                                   int gh, int gw,
-                                   const float* __restrict__ rob,
-                                   float* __restrict__ num,
-                                   float* __restrict__ den, int out_h,
-                                   int out_w, int Ts, int s, int cfa00,
-                                   int cfa01, int cfa10, int cfa11) {
-  const int C = blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = blockIdx.y;
-  if (C >= out_w) return;
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_burst_kernel(const float* __restrict__ comp, int F, int H, int W,
+                       const float* __restrict__ flow, int fny, int fnx,
+                       const float* __restrict__ covs, int gh, int gw,
+                       const float* __restrict__ rob, float* __restrict__ num,
+                       float* __restrict__ den, int out_h, int out_w, int Ts,
+                       int s, MergeCfa cfa, int rows, int bands,
+                       int buf_floats) {
+  extern __shared__ __align__(16) float smem[];
+  const int B = Ts * s;
+  const int tx = blockIdx.x;
+  const int ty = blockIdx.y / bands;
+  const int r0 = (blockIdx.y - ty * bands) * rows;
+  const int nr = min(rows, B - r0);
   const size_t plane = (size_t)out_h * out_w;
-  const size_t o = (size_t)R * out_w + C;
-  float n[3], d[3];
-  for (int k = 0; k < 3; ++k) {
-    n[k] = num[k * plane + o];
-    d[k] = den[k * plane + o];
-  }
   const size_t raw_frame = (size_t)H * W;
   const size_t flow_frame = (size_t)fny * fnx * 2;
   const size_t cov_frame = (size_t)3 * gh * gw;
-  for (int f = 0; f < F; ++f) {
-    float vals[3], accs[3];
-    merge_pixel(comp + f * raw_frame, H, W, flow + f * flow_frame, fnx,
-                covs + f * cov_frame, gh, gw, rob + f * raw_frame, R, C, Ts, s,
-                cfa00, cfa01, cfa10, cfa11, vals, accs);
-    for (int k = 0; k < 3; ++k) {
-      n[k] = n[k] + vals[k];
-      d[k] = d[k] + accs[k];
+
+  int pr[MERGE_PPT], pc[MERGE_PPT];
+  size_t po[MERGE_PPT];
+  float n[MERGE_PPT][3], d[MERGE_PPT][3];
+#pragma unroll
+  for (int k = 0; k < MERGE_PPT; ++k) {
+    merge_thread_pixel(k, B, nr, ty * B + r0, tx * B, out_h, out_w, pr[k],
+                       pc[k], po[k]);
+    for (int ch = 0; ch < 3; ++ch) {
+      n[k][ch] = pr[k] >= 0 ? num[ch * plane + po[k]] : 0.0f;
+      d[k][ch] = pr[k] >= 0 ? den[ch * plane + po[k]] : 0.0f;
     }
   }
-  for (int k = 0; k < 3; ++k) {
-    num[k * plane + o] = n[k];
-    den[k * plane + o] = d[k];
+
+  // the flow of the frame after the one being staged is loaded one frame
+  // ahead, so that staging never waits for it
+  merge_stage(smem, comp, H, W, merge_flow(flow, fnx, ty, tx), covs, gh, gw,
+              rob, ty, tx, r0, rows, Ts, s);
+  float2 fl_next = merge_flow(flow + (F > 1 ? flow_frame : 0), fnx, ty, tx);
+  merge_stage_wait();
+  for (int f = 0; f < F; ++f) {
+    const float* cur = smem + (f & 1) * buf_floats;
+    if (f + 1 < F) {
+      merge_stage(smem + ((f + 1) & 1) * buf_floats, comp + (f + 1) * raw_frame,
+                  H, W, fl_next, covs + (f + 1) * cov_frame, gh, gw,
+                  rob + (f + 1) * raw_frame, ty, tx, r0, rows, Ts, s);
+      if (f + 2 < F) {
+        fl_next = merge_flow(flow + (f + 2) * flow_frame, fnx, ty, tx);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MERGE_PPT; ++k) {
+      if (pr[k] >= 0) {
+        float vals[3], accs[3];
+        merge_pixel(cur, rows, Ts, s, pr[k], pc[k], cfa, vals, accs);
+        for (int ch = 0; ch < 3; ++ch) {
+          n[k][ch] = n[k][ch] + vals[ch];
+          d[k][ch] = d[k][ch] + accs[ch];
+        }
+      }
+    }
+    merge_stage_wait();
+  }
+#pragma unroll
+  for (int k = 0; k < MERGE_PPT; ++k) {
+    if (pr[k] >= 0) {
+      for (int ch = 0; ch < 3; ++ch) {
+        num[ch * plane + po[k]] = n[k][ch];
+        den[ch * plane + po[k]] = d[k][ch];
+      }
+    }
   }
 }
 
+// cfa as for hmsr_merge; two staging buffers when F > 1.
 extern "C" int hmsr_merge_burst(const float* comp, int F, int H, int W,
                                 const float* flow, int fny, int fnx,
                                 const float* covs, int gh, int gw,
                                 const float* rob, float* num, float* den,
-                                int out_h, int out_w, int Ts, int s, int cfa00,
-                                int cfa01, int cfa10, int cfa11,
+                                int out_h, int out_w, int Ts, int s, int cfa,
                                 void* stream) {
-  const int threads = 256;
-  dim3 grid((out_w + threads - 1) / threads, out_h);
-  if (F > 0 && out_h > 0 && out_w > 0) {
-    merge_burst_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        comp, F, H, W, flow, fny, fnx, covs, gh, gw, rob, num, den, out_h,
-        out_w, Ts, s, cfa00, cfa01, cfa10, cfa11);
-  }
+  if (F <= 0 || out_h <= 0 || out_w <= 0) return (int)cudaGetLastError();
+  MergeLayout L;
+  const cudaError_t e = merge_launch_setup(merge_burst_kernel, Ts, s, F, L);
+  if (e != cudaSuccess) return (int)e;
+  const int B = Ts * s;
+  const dim3 grid((out_w + B - 1) / B, (out_h + B - 1) / B * L.bands);
+  merge_burst_kernel<<<grid, MERGE_THREADS, L.smem_bytes,
+                       (cudaStream_t)stream>>>(
+      comp, F, H, W, flow, fny, fnx, covs, gh, gw, rob, num, den, out_h, out_w,
+      Ts, s, merge_cfa_masks(cfa), L.rows, L.bands, L.buf_floats);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@
 import numpy as np
 import torch
 
-from ..ops.cuda_merge import accumulate_tap, merge_accumulate, tap_weight
+from ..ops.cuda_merge import accumulate_tap, merge_accumulate, scale_divisor, tap_weight
 from ..utils.types import DEFAULT_FLOAT, EPSILON_DIV
 
 
@@ -71,12 +71,13 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     n_ch, out_h, out_w = num.shape
     dev = ref_img.device
 
-    pos_x = torch.arange(out_w, dtype=DEFAULT_FLOAT, device=dev)[None, :] / s
+    s_dev = scale_divisor(s, dev)
+    pos_x = torch.arange(out_w, dtype=DEFAULT_FLOAT, device=dev)[None, :] / s_dev
     center_x = torch.round(pos_x).long()
     grey_x = (pos_x - 0.5) / 2.0
     for y0 in range(0, out_h, band_rows):
         y1 = min(y0 + band_rows, out_h)
-        pos_y = torch.arange(y0, y1, dtype=DEFAULT_FLOAT, device=dev)[:, None] / s
+        pos_y = torch.arange(y0, y1, dtype=DEFAULT_FLOAT, device=dev)[:, None] / s_dev
         center_y = torch.round(pos_y).long()
         cxx, cxy, cyy = _interp_cov(covs, (pos_y - 0.5) / 2.0, grey_x)
         det = cxx * cyy - cxy * cxy

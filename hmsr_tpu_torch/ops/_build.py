@@ -13,6 +13,10 @@ weights' quadratic form ``d^T Omega^-1 d`` and the covariance determinant,
 both differences of large terms for anisotropic kernels, by more than the
 1e-5 the kernels are held to.
 
+With ``-Xptxas -v``: ptxas reports each kernel's registers, shared memory
+and spills; the build keeps that report beside the library
+(``libhmsr_kernels_<hash>.ptxas.txt``) and :func:`ptxas_report` parses it.
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
 """
@@ -20,6 +24,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +35,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hmsr_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,13 +48,19 @@ SIGNATURES = {
                        _P, _P],
     "hmsr_upscale_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "hmsr_merge": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _P],
+                   _I, _P],
     "hmsr_merge_burst": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _P],
+    "hmsr_merge_layout": [_I, _I, _I, _P],
+    "hmsr_cta_probe": [_I, _P, _I, _P, _I, _P],
+    "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
 }
 
 _lib = None
 build_seconds = None
+#: paths of the loaded library and of its kept ptxas report
+library_path = None
+ptxas_log = None
 
 
 def _sources():
@@ -71,7 +82,7 @@ def _nvcc():
 
 def library():
     """The loaded kernel library, built on first call."""
-    global _lib, build_seconds
+    global _lib, build_seconds, library_path, ptxas_log
     if _lib is not None:
         return _lib
     srcs = _sources()
@@ -97,6 +108,9 @@ def library():
                 _check_run(cmd, p.returncode, out, err)
             res = subprocess.run(link, capture_output=True, text=True)
             _check_run(link, res.returncode, res.stdout, res.stderr)
+            with open(f"{tmp}.ptxas", "w") as f:
+                f.write("".join(out + err for out, err in outs))
+            os.replace(f"{tmp}.ptxas", so[:-3] + ".ptxas.txt")
             os.replace(f"{tmp}.tmp", so)
         finally:
             for o in objs:
@@ -108,8 +122,46 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     build_seconds = time.perf_counter() - t0
+    library_path, ptxas_log = so, so[:-3] + ".ptxas.txt"
     _lib = lib
     return lib
+
+
+def ptxas_report(text):
+    """``{kernel: {"registers", "smem_bytes", "spill_stores", "spill_loads",
+    "stack_bytes"}}`` from ``-Xptxas -v`` output, by the kernels' base
+    names (:func:`demangle`)."""
+    out, name, sym, props = {}, None, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym, name = m.group(1), demangle(m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props == sym:
+            out[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def demangle(sym):
+    """Base name of an Itanium-mangled function symbol (``_Z12merge_kernelPKf...``
+    -> ``merge_kernel``); other symbols as they are."""
+    m = re.match(r"_Z(\d+)(\w+)", sym)
+    return m.group(2)[:int(m.group(1))] if m else sym
 
 
 def _check_run(cmd, returncode, stdout, stderr):

@@ -6,13 +6,17 @@ Counterpart of :mod:`hmsr_tpu.ops.pallas_merge`: ``merge_pallas`` (per
 frame) and ``merge_burst_pallas`` (frames grid). The kernels are
 ``csrc/merge.cu`` and ``csrc/merge_burst.cu`` (both replace
 ``pallas_merge.py:_merge_group_kernel``); their headers say what bounds them
-on the H100 and how the design answers it. The accumulators keep the plain
-``(3, H*s, W*s)`` shape (the TPU's ``padded_accum_shape`` is a tiling
-artefact) and are updated in place. A wrapper launches its kernel for CUDA
-tensors and runs the plain version only for CPU tensors;
+on the H100 and how the design answers it: one block per HR tile (or band
+of one), tile windows staged in shared memory; ``csrc/common.cuh`` decides
+the launch layout (:func:`merge_layout` reads it back). The accumulators
+keep the plain ``(3, H*s, W*s)`` shape (the TPU's ``padded_accum_shape`` is
+a tiling artefact) and are updated in place. A wrapper launches its kernel
+for CUDA tensors and runs the plain version only for CPU tensors;
 ``merge_accumulate.launches`` and ``merge_burst_accumulate.launches`` count
 kernel launches.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -35,6 +39,16 @@ def _cov_at(cv, i, j):
     zero = torch.zeros_like(j)
     col_ext = 2.0 * row(i, zero) - row(i, zero + min(1, gw - 1))
     return torch.where(j == -1, col_ext, row(i, j))
+
+
+def scale_divisor(s, device):
+    """The scale ``s`` as a 0-dim float tensor on ``device``, to divide by.
+    PyTorch's CUDA division by a Python number multiplies by its rounded
+    reciprocal, which differs from the division in the last bit for a third
+    of the values at s=3; dividing by a tensor on the same device divides on
+    the card as on the CPU (and as the kernels do). ``torch.full`` makes it
+    on the device, without a copy from the host."""
+    return torch.full((), float(s), dtype=DEFAULT_FLOAT, device=device)
 
 
 def tap_weight(ixx, ixy, iyy, dist_x, dist_y):
@@ -78,6 +92,7 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
     sg = s * g
     C = torch.arange(out_w, device=dev)[None, :]
     tx = C // B
+    s_dev = scale_divisor(s, dev)
 
     def floordiv(a, b):
         return torch.div(a, b, rounding_mode="floor")
@@ -102,8 +117,8 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
         ok_tile = (Syc == Sy) & (Sxc == Sx)
         center_i, center_j = Sy + 1 + q_y, Sx + 1 + q_x
 
-        lr_mov_y = (R.to(DEFAULT_FLOAT) + 0.5) / s + fy
-        lr_mov_x = (C.to(DEFAULT_FLOAT) + 0.5) / s + fx
+        lr_mov_y = (R.to(DEFAULT_FLOAT) + 0.5) / s_dev + fy
+        lr_mov_x = (C.to(DEFAULT_FLOAT) + 0.5) / s_dev + fx
         inb_center = (lr_mov_y >= 0) & (lr_mov_y < H) & (lr_mov_x >= 0) & \
             (lr_mov_x < W) & ok_tile
         local_r = r[torch.clamp(R // s, max=H - 1), torch.clamp(C // s, max=W - 1)]
@@ -190,15 +205,28 @@ def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, lead=()):
     return H, W
 
 
+def merge_layout(tile_size, scale, frames):
+    """The launch layout of K5 (``frames=1``) and of K5' over ``frames``
+    frames, as the built library computes it: ``rows`` HR rows per block,
+    ``bands`` blocks per HR tile, ``smem_bytes`` of dynamic shared memory per
+    block. Needs the CUDA toolchain (it builds the library), not a card."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().hmsr_merge_layout(int(tile_size), int(scale),
+                                                     int(frames), out),
+                 "hmsr_merge_layout")
+    return dict(rows=out[0], bands=out[1], smem_bytes=out[2])
+
+
 def _launch_args(cfa_pattern, tensors):
-    """CUDA-side checks of both wrappers; returns the CFA as 4 ints."""
+    """CUDA-side checks of both wrappers; returns the CFA packed as
+    ``cfa00 | cfa01 << 2 | cfa10 << 4 | cfa11 << 6``."""
     _build.require_cuda(tensors[0].device)
     _build.check_arg(all(t.is_contiguous() for t in tensors),
                      "merge inputs must be contiguous")
     cfa = [int(v) for v in np.asarray(cfa_pattern).reshape(-1)]
     _build.check_arg(len(cfa) == 4 and all(0 <= v < 3 for v in cfa),
                      f"bad CFA pattern {cfa}")
-    return cfa
+    return sum(v << (2 * i) for i, v in enumerate(cfa))
 
 
 def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
@@ -219,7 +247,7 @@ def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
         _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1],
         _build.ptr(covs), covs.shape[1], covs.shape[2], _build.ptr(r),
         _build.ptr(num), _build.ptr(den), num.shape[1], num.shape[2], Ts, s,
-        *cfa, _build.stream_of(comp_img))
+        cfa, _build.stream_of(comp_img))
     _build.check(code, "hmsr_merge")
     merge_accumulate.launches += 1
     return num, den
@@ -250,7 +278,7 @@ def merge_burst_accumulate(comp_stack, flows, covs_stack, r_stack, num, den,
         _build.ptr(comp_stack), F, H, W, _build.ptr(flows), flows.shape[1],
         flows.shape[2], _build.ptr(covs_stack), covs_stack.shape[2],
         covs_stack.shape[3], _build.ptr(r_stack), _build.ptr(num), _build.ptr(den),
-        num.shape[1], num.shape[2], Ts, s, *cfa, _build.stream_of(comp_stack))
+        num.shape[1], num.shape[2], Ts, s, cfa, _build.stream_of(comp_stack))
     _build.check(code, "hmsr_merge_burst")
     merge_burst_accumulate.launches += 1
     return num, den

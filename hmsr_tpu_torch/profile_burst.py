@@ -22,8 +22,11 @@ run:
   hand-written kernels are launched through ctypes, outside the profiler's
   op tree: each is added to the stage that launches it (:data:`LAUNCHED_BY`),
   K4's time split between its two stages by launch count;
-- the device time and launches of each hand-written kernel, and the
-  heaviest device rows;
+- the device time and launches of each hand-written kernel (profiler rows
+  matched by :func:`kernel_base_name`, so a templated instantiation such as
+  ``void name<4>(...)`` counts as ``name``), and the
+  heaviest device rows; a hand-written kernel whose wrapper counted
+  launches in the profiled run but that shows no device time raises;
 - the heaviest host rows by self CPU time (the CUDA runtime calls among
   them: allocations, frees, synchronisations).
 
@@ -33,22 +36,27 @@ The table goes to stdout, and also to ``--out`` when it is given.
 import argparse
 import os
 import statistics
-import subprocess
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from .measure import card
 from .models import pipeline as P
+from .ops import cuda_ica, cuda_merge, cuda_warp
 from .synthetic import CFA_RGGB, WB, affine_curves, burst_config, burst_snr, make_burst
 
 STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
           "compute_robustness", "estimate_kernels", "merge_tiled",
           "_merge_burst_chunked", "merge_ref_tiled", "normalize_accum")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
-HAND_WRITTEN = ("bm_kernel", "ica_step_kernel", "ica_fused_kernel", "warp_kernel",
-                "merge_kernel", "merge_burst_kernel")
+#: hand-written kernel -> the wrapper that launches it (and counts launches)
+HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_step_kernel": cuda_ica.ica_step,
+                "ica_fused_kernel": cuda_ica.ica_fused,
+                "warp_kernel": cuda_warp.upscale_warp,
+                "merge_kernel": cuda_merge.merge_accumulate,
+                "merge_burst_kernel": cuda_merge.merge_burst_accumulate}
 #: stage -> (hand-written kernel, its launches per burst from that stage);
 #: None stands for "every launch of the burst".
 LAUNCHED_BY = {
@@ -69,6 +77,24 @@ def _instrument():
             with record_function("stage::" + _name):
                 return _fn(*a, **k)
         setattr(P, name, wrapped)
+
+
+def kernel_base_name(key):
+    """The bare function name of a profiler kernel row: template arguments,
+    the parameter list, the return type and namespaces stripped
+    (``void ns::merge_kernel<4>(float const*, int)`` -> ``merge_kernel``)."""
+    out, depth = [], 0
+    for ch in key:
+        if ch == "<":
+            depth += 1
+        elif ch == ">" and depth:
+            depth -= 1
+        elif depth == 0:
+            if ch == "(":
+                break
+            out.append(ch)
+    words = "".join(out).split()
+    return words[-1].split("::")[-1] if words else ""
 
 
 def _self_device_us(e):
@@ -94,9 +120,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_burst needs a CUDA card")
     dev = "cuda"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
 
     _instrument()
     frames = make_burst(args.height, args.width, args.frames, args.seed, dev)
@@ -115,11 +139,14 @@ def main(argv=None):
         pipe(*run_args)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    for fn in HAND_WRITTEN.values():
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipe(*run_args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    wrapper_launches = {name: fn.launches for name, fn in HAND_WRITTEN.items()}
 
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
@@ -133,10 +160,14 @@ def main(argv=None):
             stages[e.name[len("stage::"):]] = (n + 1, us + _kernel_us(e))
     ours = {name: (0.0, 0) for name in HAND_WRITTEN}
     for e in kernels:
-        base = e.key.split("(")[0]
+        base = kernel_base_name(e.key)
         if base in ours:
             ms, n = ours[base]
             ours[base] = (ms + _self_device_us(e) / 1e3, n + e.count)
+    missing = [k for k, n in wrapper_launches.items() if n and not ours[k][0] > 0]
+    if missing:
+        raise RuntimeError(f"hand-written kernels launched {wrapper_launches} but without "
+                           f"device time in the profile: {missing}")
     for stage, launched in LAUNCHED_BY.items():
         for kname, n_from in launched:
             ms, n = ours[kname]
@@ -157,8 +188,9 @@ def main(argv=None):
               for name, (n, us) in sorted(stages.items(), key=lambda kv: -kv[1][1])]
     lines.append(f"  {'(sum of stages)':20s}       "
                  f"{sum(us for _, us in stages.values()) / 1e3:10.2f}")
-    lines.append("hand-written kernels (device ms, launches):")
-    lines += [f"  {k:20s} {ms:10.2f} {n:6d}" for k, (ms, n) in ours.items()]
+    lines.append("hand-written kernels (device ms, profiler launches, wrapper launches):")
+    lines += [f"  {k:20s} {ms:10.2f} {n:6d} {wrapper_launches[k]:6d}"
+              for k, (ms, n) in ours.items()]
     lines.append("heaviest device rows (self device ms, calls):")
     for e in sorted(kernels, key=lambda e: -_self_device_us(e))[:30]:
         lines.append(f"  {e.key[:80]:80s} {_self_device_us(e) / 1e3:9.2f} {e.count:6d}")

@@ -38,7 +38,8 @@ def test_estimate_kernels(frames, law):
     assert rel_err(got, want) <= 1e-5
 
 
-@pytest.mark.parametrize("ts,scale", [(16, 2), (32, 2), (16, 3), (8, 1)])
+@pytest.mark.parametrize("ts,scale", [(16, 2), (32, 2), (16, 3), (8, 1), (64, 2),
+                                      (32, 3), (16, 1), (32, 1), (64, 1), (64, 3)])
 def test_merge_tiled(frames, ts, scale):
     """Flows with negative fractions (covariance extrapolation at index -1),
     exact halves, and tiles pushed out of the frame (ok_tile)."""
@@ -141,10 +142,13 @@ def test_merge_burst_against_jax_burst_pallas():
     assert kernel_counts() == (0,) * 6
 
 
-@pytest.mark.parametrize("F,ts,scale", [(3, 16, 2), (2, 32, 2), (4, 16, 3)])
+@pytest.mark.parametrize("F,ts,scale", [
+    (3, 16, 2), (2, 32, 2), (4, 16, 3), (2, 64, 2), (2, 16, 1), (2, 32, 1),
+    (2, 64, 1), (2, 32, 3), (2, 64, 3)])
 def test_merge_burst_equals_sequential_frames(F, ts, scale):
     """K5''s plain version is F plain K5 merges in frame order, bit for
-    bit (the property K5' holds against K5 on the card)."""
+    bit (the property K5' holds against K5 on the card), at every (Ts,
+    scale) the kernels are checked at on the card."""
     h, w = 64, 96
     comp, flow, cov, r = _burst_inputs(F + ts, F, h, w, ts)
     flow[0, 0, 0] = (-40.0, 35.0)                   # a clipped tile (ok_tile)
@@ -188,3 +192,14 @@ def test_cpu_wrapper_launches_no_kernel(frames):
     with pytest.raises(ValueError):      # accumulators of the wrong size
         cuda_merge.merge_accumulate(t(comp), torch.zeros(4, 6, 2), covs.contiguous(),
                                     torch.ones(H, W), num[:, :-1], den, DEFAULT_CFA, 16, 2)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_scale_divisor_divides(scale):
+    """The plain merges divide HR coordinates by the scale as the JAX
+    package and the kernels do: one rounding (at s=3 a multiplication by
+    the rounded reciprocal differs for a third of the values)."""
+    x = torch.arange(0, 30000, dtype=torch.float32) + 0.5
+    got = (x / cuda_merge.scale_divisor(scale, x.device)).numpy()
+    np.testing.assert_array_equal(got, x.numpy() / np.float32(scale))
+    assert got.dtype == np.float32
