@@ -15,16 +15,24 @@ and power limit:
    fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge) and the
    probes P1 and P2 from ``hmsr_tpu_torch/csrc``; print the build seconds,
    each kernel's registers, static shared memory and spills from the
-   build's kept ``-Xptxas -v`` report, the launch layout of a K5/K5' block
-   per (Ts, scale) as the library computes it, and the static SASS
-   instructions of K5 and K5' (``cuobjdump -sass`` of the library), in all
-   and in each one's longest loop (K5''s frame loop);
+   build's kept ``-Xptxas -v`` report (per instantiation of a templated
+   kernel), the launch layouts that the library computes for K1 per (ts,
+   r, metric), K4 per (Ts, u, c) and K5/K5' per (Ts, scale), and the
+   static SASS instructions of K1, K4, K5 and K5' (``cuobjdump -sass`` of
+   the library), in all and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
    levels at Ts=16, 32 and 64, K4, K5 and K5' (5 frames) at Ts=16, 32 and
-   64, K5' also against 5 K5 launches (bit for bit); then K5 and K5' at
+   64, K4 also at grey mode's one channel and no upscale, K5' also against
+   5 K5 launches (bit for bit); K1 and K4 at shapes off the main paths,
+   which reach their instantiations with run-time tile size, radius and
+   upscale (K1: ts 8, 12, 16, 24 with r 1, 2, 4, 16; K4: 4 and 2 channels,
+   u=4, Ts=6 on a width that is no multiple of 4), untimed; then K5 and K5' at
    scales 1 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
-   median time of kernel and plain version (CUDA events) and the bound;
+   kernel's device time alone (:func:`hmsr_tpu_torch.measure.timed`: back
+   to back behind a held stream, between CUDA events), the wrapper's host
+   time per call apart, the plain version's time (events around its
+   calls, the card's waits for the host included) and the bound;
 3. the 512x512 8-frame slice on the card against the slice on the CPU, in
    the scan and the chunked form (chunks of 3: the last one shorter): flow
    max|d| < 1e-2, image mean|d| < 1e-4 and max|d| < 1e-3 on the interior;
@@ -128,17 +136,18 @@ def reset_counts():
         fn.launches = 0
 
 
-def sass_counts(names):
+def sass_counts(bases):
     """``{kernel: (static SASS instructions, those of its longest loop)}``
-    for the kernels ``names`` of the built library (``cuobjdump -sass``);
+    for every instantiation (``bm_kernel<16,4,1>``) of the kernels whose
+    base names are ``bases``, in the built library (``cuobjdump -sass``);
     a loop is the span of a backward branch, 16 bytes per instruction."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", _build.library_path], capture_output=True,
                           text=True, check=True).stdout
     out = {}
     for part in re.split(r"\n\s+Function : ", text)[1:]:
-        name = _build.demangle(part.split()[0])
-        if name in names:
+        name = _build.kernel_name(part.split()[0])
+        if name.split("<")[0] in bases:
             back = [(int(a, 16) - int(b, 16)) // 16 + 1 for a, b in re.findall(
                 r"/\*([0-9a-f]{4,})\*/[^;\n]*?\bBRA(?:\.\w+)*\s+0x([0-9a-f]+)", part)
                 if int(b, 16) < int(a, 16)]
@@ -147,9 +156,10 @@ def sass_counts(names):
     return out
 
 
-def phase_build():
-    """Phase 1: build; print each kernel's ptxas resources, the K5/K5'
-    launch layouts and their static SASS counts. Returns the ptxas report."""
+def phase_build(raw_shape):
+    """Phase 1: build; print each kernel's ptxas resources, the launch
+    layouts of K1, K4, K5 and K5' and the static SASS counts of K1, K4, K5
+    and K5'. Returns the ptxas report."""
     _build.library()
     log(f"phase 1 built {len(KERNELS)} kernels of the path and {len(PROBES)} probes in "
         f"{_build.build_seconds:.2f} s [{CARD}]")
@@ -166,7 +176,30 @@ def phase_build():
             "memory per block (HR rows per block) " + ", ".join(
                 f"Ts={Ts} x{sc} {g['smem_bytes']} B ({g['rows']})"
                 for (Ts, sc), g in lay.items()))
-    for name, (n, loop) in sass_counts(set(MERGE_KERNELS.values())).items():
+    for snr in (40, 18, 8):                             # Ts 16, 32, 64
+        config = burst_config(raw_shape, snr)
+        state = init_alignment(torch.zeros(raw_shape, device="cuda"), config)
+        for l, (tiles, (_, ts, r, metric)) in enumerate(
+                zip(state.tiles, _level_tile_sizes(config))):
+            n = tiles.shape[0] * tiles.shape[1]
+            if n < FUSED_GN_MAX_TILES and metric == "L1" and r == 1:
+                continue                                # K3 searches it
+            g = cuda_ica.bm_layout(ts, r, metric, n)
+            log(f"  K1 Ts={config.block_matching.tuning.tile_size} level {l} "
+                f"(ts={ts} r={r} {metric}, {n} tiles) launch layout: "
+                f"{'its own instantiation' if g['fixed'] else 'run-time ts and r'}, "
+                f"{g['tiles_per_warp']} tiles per warp x {g['lanes_per_tile']} lanes, "
+                f"{g['threads']} threads per block, bands of {g['band']} tile rows, "
+                f"{g['smem_bytes']} B dynamic shared memory")
+    for Ts, u, c in ((16, 2, 3), (32, 2, 3), (64, 2, 3), (16, 1, 1), (64, 1, 1)):
+        g = cuda_warp.warp_layout(Ts, u, c)
+        log(f"  K4 Ts={Ts} u={u} c={c} launch layout: "
+            f"{'its own instantiation' if g['fixed'] else 'run-time Ts and u'}, "
+            f"{g['tiles']} tiles of a tile row per block of {g['threads']} threads "
+            f"(4 pixels each), window {g['window']}x{g['window']}, "
+            f"{g['smem_bytes']} B dynamic shared memory")
+    bases = {"bm_kernel", "warp_kernel", *MERGE_KERNELS.values()}
+    for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
 
@@ -209,9 +242,16 @@ def blocky_scene(rng, h, w, block=8):
     return np.kron(base, np.ones((block, block), np.float32))[:h, :w]
 
 
-def record(stats, key, Ts, per_frame, err, ms, plain_ms, bnd):
-    stats[key].append(dict(Ts=Ts, per_frame=per_frame, err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1]))
+def record(stats, key, Ts, per_frame, err, tk, plain_ms, bnd, **extra):
+    """One row of phase 2: ``tk`` is the kernel's :class:`Timing` (device ms,
+    host us per call)."""
+    stats[key].append(dict(Ts=Ts, per_frame=per_frame, err=err, ms=tk.ms,
+                           host_us=tk.host_us, plain_ms=plain_ms, bound_ms=bnd[0],
+                           bound_by=bnd[1], **extra))
+
+
+def time_text(tk):
+    return f"kernel {tk.ms:.4f} ms (host {tk.host_us:.1f} us per call)"
 
 
 def check_alignment_kernels(device, grey_shape, snr, rng, stats):
@@ -247,18 +287,19 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         d_k = cuda_ica.block_match(tiles, mov_lvl, flow, ts, radius, metric)
         d_p = cuda_ica.block_match_plain(tiles, mov_lvl, flow, ts, radius, metric)
         n_diff = int((d_k != d_p).sum())
-        ms_k = timed(lambda: cuda_ica.block_match(tiles, mov_lvl, flow, ts,
-                                                  radius, metric))
+        tk = timed(lambda: cuda_ica.block_match(tiles, mov_lvl, flow, ts, radius,
+                                                metric))
         ms_p = timed(lambda: cuda_ica.block_match_plain(tiles, mov_lvl, flow, ts,
-                                                        radius, metric), n=3)
+                                                        radius, metric),
+                     n=3, hold=False).ms
         # each candidate: L1 sub, abs, add; L2 two multiplies, two adds
         bnd = bound(nbytes(tiles, mov_lvl, flow, d_k),
                     n_px * (2 * radius + 1) ** 2 * (3 if metric == "L1" else 4))
-        log(f"  K1 {key}: displacements differing {n_diff}, kernel {ms_k:.4f} ms, "
+        log(f"  K1 {key}: displacements differing {n_diff}, {time_text(tk)}, "
             f"plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
         if n_diff:
             raise AssertionError(f"K1 {key}: {n_diff} displacements differ")
-        record(stats, "K1", Ts, 0 if fused_bm else 1, 0.0, ms_k, ms_p, bnd)
+        record(stats, "K1", Ts, 0 if fused_bm else 1, 0.0, tk, ms_p, bnd)
 
         fl2 = flow + torch.as_tensor(rng.uniform(-0.99, 0.99, (ny, nx, 2)).astype(
             np.float32), device=device)
@@ -266,18 +307,19 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         b_p = cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady, mov_lvl, fl2, ts)
         err = float((b_k - b_p).abs().max())
         rel = err / max(float(b_p.abs().max()), 1e-30)
-        ms_k = timed(lambda: cuda_ica.ica_step(lvl, ica.gradx, ica.grady,
-                                               mov_lvl, fl2, ts))
+        tk = timed(lambda: cuda_ica.ica_step(lvl, ica.gradx, ica.grady, mov_lvl,
+                                             fl2, ts))
         ms_p = timed(lambda: cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady,
-                                                     mov_lvl, fl2, ts))
+                                                     mov_lvl, fl2, ts),
+                     n=3, hold=False).ms
         # per tile pixel: 3 bilinear lerps (9), the residual (1), 2 products
         # and 2 sums
         bnd = bound(nbytes(lvl, ica.gradx, ica.grady, mov_lvl, fl2, b_k), n_px * 14)
-        log(f"  K2 {key}: max|d| {err:.3e} (rel {rel:.3e}), kernel {ms_k:.4f} ms, "
+        log(f"  K2 {key}: max|d| {err:.3e} (rel {rel:.3e}), {time_text(tk)}, "
             f"plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
         if not rel <= 1e-4:
             raise AssertionError(f"K2 {key}: relative error {rel:.3e} > 1e-4")
-        record(stats, "K2", Ts, 0 if fused else n_iter, err, ms_k, ms_p, bnd)
+        record(stats, "K2", Ts, 0 if fused else n_iter, err, tk, ms_p, bnd)
 
         # K3 as the level would run it (the L1 search only on L1 r=1 levels),
         # from fractional flows with half-integer ties
@@ -289,16 +331,16 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
         f_k = cuda_ica.ica_fused(*args)
         f_p = cuda_ica.ica_fused_plain(*args)
         err = float((f_k - f_p).abs().max())
-        ms_k = timed(lambda: cuda_ica.ica_fused(*args))
-        ms_p = timed(lambda: cuda_ica.ica_fused_plain(*args), n=3)
+        tk = timed(lambda: cuda_ica.ica_fused(*args))
+        ms_p = timed(lambda: cuda_ica.ica_fused_plain(*args), n=3, hold=False).ms
         bnd = bound(nbytes(lvl, ica.gradx, ica.grady, terms, mov_lvl, fl3, f_k),
                     n_px * (14 * n_iter + (27 if bm else 0)))
         log(f"  K3 {key}{' with L1 search' if bm else ''}: flow max|d| {err:.3e}, "
-            f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"{time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}) [{CARD}]")
         if not err <= 1e-4:
             raise AssertionError(f"K3 {key}: flow max|d| {err:.3e} > 1e-4")
-        record(stats, "K3", Ts, 1 if fused else 0, err, ms_k, ms_p, bnd)
+        record(stats, "K3", Ts, 1 if fused else 0, err, tk, ms_p, bnd)
 
 
 def random_flow(rng, H, W, Ts, device, lead=()):
@@ -308,28 +350,91 @@ def random_flow(rng, H, W, Ts, device, lead=()):
     return torch.as_tensor(fl, device=device)
 
 
-def check_warp_kernel(device, raw_shape, Ts, rng, stats, time_plain):
+def check_warp_kernel(device, raw_shape, Ts, rng, stats, time_plain, c=3, u=2):
+    """K4 on (c, H/u, W/u) stats against its plain version: masks exact,
+    max|d| <= 1e-5. The main path's call is c=3, u=2; grey mode's c=1, u=1."""
     H, W = raw_shape
-    lh, lw = H // 2, W // 2
-    st = torch.as_tensor(rng.rand(3, lh, lw).astype(np.float32), device=device)
+    lh, lw = H // u, W // u
+    st = torch.as_tensor(rng.rand(c, lh, lw).astype(np.float32), device=device)
     flow = random_flow(rng, H, W, Ts, device)
-    o_k, v_k = cuda_warp.upscale_warp(st, 2, Ts, flow, (H, W))
-    o_p, v_p = cuda_warp.upscale_warp_plain(st, 2, Ts, flow, (H, W))
+    o_k, v_k = cuda_warp.upscale_warp(st, u, Ts, flow, (H, W))
+    o_p, v_p = cuda_warp.upscale_warp_plain(st, u, Ts, flow, (H, W))
     err = nan_max_abs(o_k, o_p)
     n_mask = int((v_k != v_p).sum())
-    ms_k = timed(lambda: cuda_warp.upscale_warp(st, 2, Ts, flow, (H, W)))
-    ms_p = timed(lambda: cuda_warp.upscale_warp_plain(st, 2, Ts, flow, (H, W))) \
-        if time_plain else float("nan")
-    # per output pixel: 9 taps x (2 Dodgson weights ~8, their product, 3
-    # channel multiply-adds, the weight sum) and 3 divisions
-    bnd = bound(nbytes(st, flow, o_k, v_k), H * W * (9 * 16 + 3))
-    log(f"  K4 Ts={Ts} stats {(3, lh, lw)} -> {(3, H, W)}: max|d| {err:.3e}, valid "
-        f"masks differing {n_mask} (invalid pixels {int((~v_p).sum())}), "
-        f"kernel {ms_k:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms "
+    tk = timed(lambda: cuda_warp.upscale_warp(st, u, Ts, flow, (H, W)))
+    ms_p = timed(lambda: cuda_warp.upscale_warp_plain(st, u, Ts, flow, (H, W)),
+                 n=3, hold=False).ms if time_plain else float("nan")
+    # per output pixel: 9 taps x (2 Dodgson weights ~8, their product, c
+    # channel multiply-adds, the weight sum) and c divisions
+    bnd = bound(nbytes(st, flow, o_k, v_k), H * W * (9 * (10 + 2 * c) + c))
+    log(f"  K4 Ts={Ts} u={u} stats {(c, lh, lw)} -> {(c, H, W)}: max|d| {err:.3e}, "
+        f"valid masks differing {n_mask} (invalid pixels {int((~v_p).sum())}), "
+        f"{time_text(tk)}, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms "
         f"({bnd[1]}) [{CARD}]")
     if not (err <= 1e-5 and n_mask == 0):
-        raise AssertionError(f"K4 Ts={Ts}: max|d| {err:.3e}, {n_mask} mask differences")
-    record(stats, "K4", Ts, 1, err, ms_k, ms_p, bnd)
+        raise AssertionError(f"K4 Ts={Ts} u={u} c={c}: max|d| {err:.3e}, {n_mask} mask "
+                             f"differences")
+    record(stats, "K4", Ts, 1 if (c, u) == (3, 2) else 0, err, tk, ms_p, bnd)
+
+
+#: K1 shapes (ts, r, metric) that reach its instantiation with run-time ts
+#: and r: a tile size of its own, tile sizes that are not a multiple of the
+#: staged band (8 at r=1, 16 at r=4), and a radius whose 2r+1 candidate rows
+#: exceed a warp (passes of rows, and of BM_CHAINS columns)
+BM_RUNTIME = ((8, 1, "L1"), (12, 1, "L1"), (16, 2, "L1"), (24, 4, "L2"),
+              (8, 16, "L2"), (12, 16, "L1"))
+#: K4 (Ts, u, c, H, W) that reach its instantiations with run-time Ts and u:
+#: four and two channels, and a Ts and W that are not multiples of 4 (the
+#: scalar tail)
+WARP_RUNTIME = ((16, 2, 4, 1000, 1500), (32, 4, 2, 1000, 1500),
+                (6, 3, 3, 999, 1502))
+
+
+def check_runtime_instantiations(device, rng, h=600, w=808):
+    """K1 and K4 at shapes off the main paths, which their run-time
+    instantiations serve, against their plain versions: K1 0 displacements
+    differing (far-out tiles whose windows tie included), K4 masks exact and
+    max|d| <= 1e-5. Not timed."""
+    scene = blocky_scene(rng, h + 8, w + 8)
+    ref = torch.as_tensor(scene[:h, :w] + 0.01 * rng.randn(h, w).astype(np.float32),
+                          device=device)
+    mov = torch.as_tensor(scene[3:h + 3, 5:w + 5]
+                          + 0.01 * rng.randn(h, w).astype(np.float32), device=device)
+    for ts, r, metric in BM_RUNTIME:
+        ny, nx = h // ts, w // ts
+        if cuda_ica.bm_layout(ts, r, metric, ny * nx)["fixed"]:
+            raise AssertionError(f"K1 ts={ts} r={r} {metric} has an instantiation of "
+                                 f"its own")
+        tiles = ref[:ny * ts, :nx * ts].reshape(ny, ts, nx, ts).permute(0, 2, 1, 3)
+        fl = rng.uniform(-4, 4, (ny, nx, 2)).astype(np.float32)
+        fl[::3] = np.round(fl[::3] * 2) / 2
+        fl[0, 0] = (-60.0, 45.0)            # far outside the image
+        flow = torch.as_tensor(fl, device=device)
+        if metric == "L1":
+            flow = torch.round(flow)
+        d_k = cuda_ica.block_match(tiles, mov, flow, ts, r, metric)
+        d_p = cuda_ica.block_match_plain(tiles, mov, flow, ts, r, metric)
+        n_diff = int((d_k != d_p).sum())
+        log(f"  K1 run-time ts and r: ts{ts} r{r} {metric} tiles {ny}x{nx}: "
+            f"displacements differing {n_diff}")
+        if n_diff:
+            raise AssertionError(f"K1 ts={ts} r={r} {metric}: {n_diff} displacements "
+                                 f"differ")
+    for Ts, u, c, H, W in WARP_RUNTIME:
+        if cuda_warp.warp_layout(Ts, u, c)["fixed"]:
+            raise AssertionError(f"K4 Ts={Ts} u={u} c={c} has an instantiation of its own")
+        st = torch.as_tensor(rng.rand(c, H // u, W // u).astype(np.float32), device=device)
+        flow = random_flow(rng, H, W, Ts, device)
+        o_k, v_k = cuda_warp.upscale_warp(st, u, Ts, flow, (H, W))
+        o_p, v_p = cuda_warp.upscale_warp_plain(st, u, Ts, flow, (H, W))
+        err = nan_max_abs(o_k, o_p)
+        n_mask = int((v_k != v_p).sum())
+        log(f"  K4 run-time Ts and u: Ts={Ts} u={u} stats {tuple(st.shape)} -> "
+            f"{(c, H, W)}: max|d| {err:.3e}, valid masks differing {n_mask} (invalid "
+            f"pixels {int((~v_p).sum())})")
+        if not (err <= 1e-5 and n_mask == 0):
+            raise AssertionError(f"K4 Ts={Ts} u={u} c={c}: max|d| {err:.3e}, {n_mask} "
+                                 f"mask differences")
 
 
 #: float operations of one frame at one HR pixel of K5/K5': 9 taps x (8 for
@@ -369,19 +474,19 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
     cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, s)
     cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, s)
     err_n, err_d, err = rel_errs(n_k, d_k, n_p, d_p)
-    ms_k = timed(lambda: cuda_merge.merge_accumulate(*merge_args, n_k, d_k,
-                                                     CFA_RGGB, Ts, s))
+    tk = timed(lambda: cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB,
+                                                   Ts, s))
     ms_p = timed(lambda: cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB,
-                                                Ts, s), n=3) \
+                                                Ts, s), n=3, hold=False).ms \
         if time_plain else float("nan")
     bnd = bound(acc_bytes + frame_bytes, px * MERGE_FLOPS)
     log(f"  K5 Ts={Ts} x{s} comp {(H, W)} -> num/den {(3, s * H, s * W)}: rel max|d| "
-        f"num {err_n:.3e} den {err_d:.3e}, kernel {ms_k:.4f} ms, plain "
+        f"num {err_n:.3e} den {err_d:.3e}, {time_text(tk)}, plain "
         f"{plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
     if not (err_n <= 1e-5 and err_d <= 1e-5):
         raise AssertionError(f"K5 Ts={Ts} x{s}: relative errors {err_n:.3e} / "
                              f"{err_d:.3e}")
-    record(stats, "K5", Ts, main, err, ms_k, ms_p, bnd)
+    record(stats, "K5", Ts, main, err, tk, ms_p, bnd)
     del n_k, d_k, n_p, d_p
 
     burst_args = (comp, flows, covs, r)
@@ -403,24 +508,23 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
     torch.cuda.synchronize()
     err_n, err_d, err = rel_errs(n_b, d_b, n_p, d_p)
     del n_p, d_p
-    ms_b = timed(lambda: cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b,
-                                                           CFA_RGGB, Ts, s))
+    tk = timed(lambda: cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b,
+                                                         CFA_RGGB, Ts, s))
     ms_seq = timed(lambda: [cuda_merge.merge_accumulate(
-        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, s) for f in range(F)])
+        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, s)
+        for f in range(F)]).ms
     ms_p = t0.elapsed_time(t1) if time_plain else float("nan")
     bnd = bound(acc_bytes + F * frame_bytes, F * px * MERGE_FLOPS)
     log(f"  K5' Ts={Ts} x{s} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
         f"(bit-identical: {same}); against its plain version rel max|d| num "
-        f"{err_n:.3e} den {err_d:.3e}; kernel {ms_b:.4f} ms per launch, {F} x K5 "
+        f"{err_n:.3e} den {err_d:.3e}; {time_text(tk)} per launch, {F} x K5 "
         f"{ms_seq:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
         f"[{CARD}]")
     if not (same and err_n <= 1e-5 and err_d <= 1e-5):
         raise AssertionError(f"K5' Ts={Ts} x{s}: against K5 max|d| {d_seq:.3e}, "
                              f"relative errors {err_n:.3e} / {err_d:.3e}")
     # per frame of the main path, as the other entries
-    stats["K5'"].append(dict(Ts=Ts, per_frame=main / F, err=err, ms=ms_b,
-                             plain_ms=ms_p, bound_ms=bnd[0], bound_by=bnd[1],
-                             seq_ms=ms_seq))
+    record(stats, "K5'", Ts, main / F, err, tk, ms_p, bnd, seq_ms=ms_seq)
 
 
 def phase_kernels(device, raw_shape, seed=1):
@@ -434,6 +538,9 @@ def phase_kernels(device, raw_shape, seed=1):
     for Ts in (16, 32, 64):
         check_warp_kernel(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
         check_merge_kernels(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
+    # grey mode's call: one channel, no upscale (off the main path)
+    check_warp_kernel(device, raw_shape, MAIN_TS, rng, stats, False, c=1, u=1)
+    check_runtime_instantiations(device, rng)
     for s in (1, 3):
         for Ts in (16, 32, 64):
             check_merge_kernels(device, (1024, 1024), Ts, rng, stats, False, s=s)
@@ -661,7 +768,7 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
 
-    ptxas = phase_build()
+    ptxas = phase_build((3000, 4000))
 
     log("phase 2 kernels against their plain versions (main-path shapes)")
     stats = phase_kernels(device, (3000, 4000))
@@ -692,7 +799,8 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[key],
             "max_abs_err": max(e["err"] for e in stats[key]),
-            "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
+            "ms": per_frame("ms"), "host_us": per_frame("host_us"),
+            "plain_ms": per_frame("plain_ms"),
             "bound_ms": per_frame("bound_ms"),
             "bound_by": max(main_path, key=lambda e: e["per_frame"] * e["bound_ms"])
             ["bound_by"],
@@ -708,6 +816,7 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": 0, "max_abs_err": row["err"], "ms": row["ms"],
+            "host_us": row["host_us"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     entries[-2]["ns_per_block"] = p1_ns

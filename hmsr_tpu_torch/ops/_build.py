@@ -47,6 +47,8 @@ SIGNATURES = {
     "hmsr_ica_fused": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _P],
     "hmsr_upscale_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "hmsr_warp_layout": [_I, _I, _I, _P],
+    "hmsr_bm_layout": [_I, _I, _I, _I, _P],
     "hmsr_merge": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                    _I, _P],
     "hmsr_merge_burst": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I,
@@ -130,12 +132,13 @@ def library():
 def ptxas_report(text):
     """``{kernel: {"registers", "smem_bytes", "spill_stores", "spill_loads",
     "stack_bytes"}}`` from ``-Xptxas -v`` output, by the kernels' base
-    names (:func:`demangle`)."""
+    names (:func:`demangle`), with their template arguments where a kernel
+    has several instantiations (``bm_kernel<16,4,1>``)."""
     out, name, sym, props = {}, None, None, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            sym, name = m.group(1), demangle(m.group(1))
+            sym, name = m.group(1), kernel_name(m.group(1))
             out[name] = {}
             continue
         m = re.search(r"Function properties for (\w+)", line)
@@ -154,7 +157,9 @@ def ptxas_report(text):
             out[name]["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", line)
             out[name]["smem_bytes"] = int(m.group(1)) if m else 0
-    return out
+    bases = [k.split("<")[0] for k in out]
+    return {(k.split("<")[0] if bases.count(k.split("<")[0]) == 1 else k): v
+            for k, v in out.items()}
 
 
 def demangle(sym):
@@ -162,6 +167,17 @@ def demangle(sym):
     -> ``merge_kernel``); other symbols as they are."""
     m = re.match(r"_Z(\d+)(\w+)", sym)
     return m.group(2)[:int(m.group(1))] if m else sym
+
+
+def kernel_name(sym):
+    """:func:`demangle` with integer template arguments
+    (``_Z9bm_kernelILi16ELi4ELi1EEvPKf...`` -> ``bm_kernel<16,4,1>``)."""
+    base = demangle(sym)
+    m = re.match(r"_Z\d+" + re.escape(base) + r"I((?:Lin?\d+E)+)E", sym)
+    if not m:
+        return base
+    args = re.findall(r"Li(n?)(\d+)E", m.group(1))
+    return base + "<" + ",".join(("-" if neg else "") + v for neg, v in args) + ">"
 
 
 def _check_run(cmd, returncode, stdout, stderr):

@@ -11,6 +11,8 @@ each on the H100 and how the design answers it. Each wrapper launches its kernel
 version only for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -113,6 +115,21 @@ def block_match(ref_tiles, moving, flow, tile_size, radius, metric):
 
 
 block_match.launches = 0
+
+
+def bm_layout(tile_size, radius, metric, n_tiles):
+    """The launch layout of K1 for (ts, r, metric) on a level of ``n_tiles``
+    tiles, as the built library computes it: ``fixed`` (an instantiation of
+    its own, else the one with run-time ts and r), ``tiles_per_warp``,
+    ``lanes_per_tile``, ``threads`` per block, tile rows per staged
+    ``band`` and ``smem_bytes`` of dynamic shared memory per block. Needs
+    the CUDA toolchain (it builds the library), not a card."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.library().hmsr_bm_layout(int(tile_size), int(radius),
+                                                  METRICS[metric], int(n_tiles), out),
+                 "hmsr_bm_layout")
+    return dict(fixed=bool(out[0]), tiles_per_warp=out[1], lanes_per_tile=out[2],
+                threads=out[3], band=out[4], smem_bytes=out[5])
 
 
 def ica_step_plain(ref_lvl, gradx, grady, moving, flow, tile_size):

@@ -8,9 +8,12 @@ launches the kernel for CUDA tensors and runs the plain version only for CPU
 tensors; ``upscale_warp.launches`` counts kernel launches.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
+from .cuda_merge import scale_divisor
 from .dogson import dogson_quadratic_kernel
 from ..utils.types import DEFAULT_FLOAT
 
@@ -49,8 +52,9 @@ def upscale_warp_plain(stats, upscale, tile_size, flow, out_shape):
 
     Sy, Syc, q_y = axis(fy, ty, Y - ty * Ts, lh)
     Sx, Sxc, q_x = axis(fx, tx, X - tx * Ts, lw)
-    lr_y = (Y.to(DEFAULT_FLOAT) + fy + 0.5) / u - 0.5
-    lr_x = (X.to(DEFAULT_FLOAT) + fx + 0.5) / u - 0.5
+    u_dev = scale_divisor(u, dev)       # a true division on the card too
+    lr_y = (Y.to(DEFAULT_FLOAT) + fy + 0.5) / u_dev - 0.5
+    lr_x = (X.to(DEFAULT_FLOAT) + fx + 0.5) / u_dev - 0.5
     valid = (lr_y >= 0) & (lr_y < lh) & (lr_x >= 0) & (lr_x < lw) & \
         (Syc == Sy) & (Sxc == Sx)
 
@@ -104,3 +108,18 @@ def upscale_warp(stats, upscale, tile_size, flow, out_shape):
 
 
 upscale_warp.launches = 0
+
+
+def warp_layout(tile_size, upscale, channels):
+    """The launch layout of K4 for (Ts, u, c), as the built library computes
+    it: ``tiles`` of one tile row per block, ``threads`` per block, the
+    staged window's side ``window``, ``smem_bytes`` of dynamic shared
+    memory per block and ``fixed`` (an instantiation of its own, else the
+    one with run-time Ts and u). Needs the CUDA toolchain (it builds the library), not
+    a card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().hmsr_warp_layout(int(tile_size), int(upscale),
+                                                    int(channels), out),
+                 "hmsr_warp_layout")
+    return dict(tiles=out[0], threads=out[1], window=out[2], smem_bytes=out[3],
+                fixed=bool(out[4]))

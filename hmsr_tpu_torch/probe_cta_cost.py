@@ -9,12 +9,13 @@ P1 (``csrc/probes.cu``, the counterpart of the TPU probe
 ``tools/probe_program_cost.py``) launches grids of 16k-64k blocks of 128
 threads whose body is empty, stages 1024 floats in shared memory, or runs
 a chain of 100 dependent multiply-adds per thread; each is checked against
-its plain version and timed (median of CUDA-event runs) beside the one
-PyTorch call that writes the same, where there is one (``torch.arange``
-for the empty body, a strided copy for the staging body), and the
-per-block cost is the slope of time over blocks between the smallest and
-the largest grid. P2 (the counterpart of ``tools/probe_l2ica3.py:trivial_pallas_sum``)
-sums the 8-row blocks of the bright burst's grey image and of its pyramid
+its plain version and timed (device time and host time per call,
+:func:`hmsr_tpu_torch.measure.timed`) beside the one PyTorch call that
+writes the same, where there is one (``torch.arange`` for the empty body,
+a strided copy for the staging body), and the per-block cost is the slope
+of time over blocks between the smallest and the largest grid. P2 (the
+counterpart of ``tools/probe_l2ica3.py:trivial_pallas_sum``) sums the
+8-row blocks of the bright burst's grey image and of its pyramid
 level 2 (after the blur), against its plain version. Every line carries
 the card's name and power limit.
 """
@@ -51,19 +52,21 @@ def run_p1(device, blocks=BLOCKS, log=print, tag=""):
             got = cuda_probes.cta_probe(kind, x, n, nb)
             want = cuda_probes.cta_probe_plain(kind, x, n, nb)
             err = float((got - want).abs().max())
-            ms = timed(lambda: cuda_probes.cta_probe(kind, x, n, nb), n=7)
-            ms_p = timed(lambda: cuda_probes.cta_probe_plain(kind, x, n, nb), n=3)
+            ms, host_us = timed(lambda: cuda_probes.cta_probe(kind, x, n, nb))
+            ms_p = timed(lambda: cuda_probes.cta_probe_plain(kind, x, n, nb), n=3,
+                         hold=False).ms
             lib = LIBRARY[kind]
-            ms_l = timed(lambda: lib(x, n, nb), n=7) if lib else None
+            ms_l = timed(lambda: lib(x, n, nb)).ms if lib else None
             bnd = bound(4 * (x.numel() if kind != "empty" else 0) + 4 * got.numel(),
                         2 * n * got.numel() if kind == "chain" else 0)
-            rows.append(dict(blocks=nb, err=err, ms=ms, plain_ms=ms_p, library_ms=ms_l,
-                             bound_ms=bnd[0], bound_by=bnd[1]))
+            rows.append(dict(blocks=nb, err=err, ms=ms, host_us=host_us, plain_ms=ms_p,
+                             library_ms=ms_l, bound_ms=bnd[0], bound_by=bnd[1]))
             lib_text = f"one torch call {ms_l:.4f} ms" if lib else "no one torch call"
             log(f"  P1 {kind} body{f' n={n}' if n else ''}, {nb} blocks of "
                 f"{cuda_probes.PROBE_THREADS} threads: max|d| {err:.3e}, kernel "
-                f"{ms:.4f} ms ({1e6 * ms / nb:.2f} ns/block), plain {ms_p:.4f} ms, "
-                f"{lib_text}, bound {bnd[0]:.4f} ms ({bnd[1]}) [{tag}]")
+                f"{ms:.4f} ms ({1e6 * ms / nb:.2f} ns/block; host {host_us:.1f} us per "
+                f"call), plain {ms_p:.4f} ms, {lib_text}, bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}) [{tag}]")
             if err != 0.0:
                 raise AssertionError(f"P1 {kind} at {nb} blocks: max|d| {err:.3e}")
         per_block_ns[kind] = 1e6 * (rows[-1]["ms"] - rows[0]["ms"]) / \
@@ -88,21 +91,24 @@ def run_p2(device, log=print, tag=""):
         got = cuda_probes.row_block_sum(x)
         want = cuda_probes.row_block_sum_plain(x)
         rel = float((got - want).abs().max()) / float(want.abs().max())
-        ms = timed(lambda: cuda_probes.row_block_sum(x), n=7)
-        ms_p = timed(lambda: cuda_probes.row_block_sum_plain(x), n=7)
+        ms, host_us = timed(lambda: cuda_probes.row_block_sum(x))
+        ms_p = timed(lambda: cuda_probes.row_block_sum_plain(x)).ms
         # one library call of the same function: a segment sum over 8 rows
         h, w = x.shape
         lengths = torch.full((-(-h // 8),), 8 * w, device=device, dtype=torch.int64)
         lengths[-1] = (h - 8 * (len(lengths) - 1)) * w
         flat = x.view(-1)
-        ms_l = timed(lambda: torch.segment_reduce(flat, "sum", lengths=lengths), n=7)
+        # (it waits for the card on the host, so no call can queue behind a hold)
+        ms_l = timed(lambda: torch.segment_reduce(flat, "sum", lengths=lengths),
+                     hold=False).ms
         bnd = bound(4 * (x.numel() + got.numel()), x.numel())
         rows.append(dict(input=name, err=float((got - want).abs().max()), rel=rel,
-                         ms=ms, plain_ms=ms_p, library_ms=ms_l, bound_ms=bnd[0],
-                         bound_by=bnd[1]))
+                         ms=ms, host_us=host_us, plain_ms=ms_p, library_ms=ms_l,
+                         bound_ms=bnd[0], bound_by=bnd[1]))
         log(f"  P2 row-block sum of the {name} {tuple(x.shape)}: rel max|d| {rel:.3e}, "
-            f"kernel {ms:.4f} ms, plain {ms_p:.4f} ms, torch.segment_reduce "
-            f"{ms_l:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{tag}]")
+            f"kernel {ms:.4f} ms (host {host_us:.1f} us per call), plain {ms_p:.4f} ms, "
+            f"torch.segment_reduce {ms_l:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+            f"[{tag}]")
         if not rel <= 1e-5:
             raise AssertionError(f"P2 on the {name}: relative error {rel:.3e}")
     return rows

@@ -10,8 +10,12 @@ It makes the ``bench.py`` headline burst on the card
 ``--pipeline``: scan, or chunked with chunks of 5) once to warm up,
 :data:`RUNS` times unprofiled (wall seconds, each and the median), and once
 under ``torch.profiler`` with a ``record_function`` range around every stage
-call of :mod:`hmsr_tpu_torch.models.pipeline`. It prints, for the profiled
-run:
+call of :mod:`hmsr_tpu_torch.models.pipeline`. For the unprofiled runs it
+prints each run's wall and the host's share of it: the seconds until the
+pipeline call returns, before the closing synchronise (when that is close
+to the wall, the host bounds the run), and per stage the median host
+milliseconds spent inside its calls (the card's back-pressure on a full
+launch queue included). For the profiled run it prints:
 
 - its wall seconds, and the kernel-only device time: the self device time
   of every CUDA kernel row, annotations excluded; the busy share is that
@@ -68,14 +72,22 @@ LAUNCHED_BY = {
 }
 
 
+#: stage -> host seconds spent inside its calls since the last clear
+HOST_S = {}
+
+
 def _instrument():
-    """Wrap each stage function the pipeline calls in a named range."""
+    """Wrap each stage function the pipeline calls in a named range, and
+    add the host seconds of each call to :data:`HOST_S`."""
     for name in STAGES:
         fn = getattr(P, name)
 
         def wrapped(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
             with record_function("stage::" + _name):
-                return _fn(*a, **k)
+                out = _fn(*a, **k)
+            HOST_S[_name] = HOST_S.get(_name, 0.0) + time.perf_counter() - t0
+            return out
         setattr(P, name, wrapped)
 
 
@@ -133,12 +145,15 @@ def main(argv=None):
 
     pipe(*run_args)
     torch.cuda.synchronize()
-    walls = []
+    walls, enqueues, host = [], [], []
     for _ in range(RUNS):
+        HOST_S.clear()
         t0 = time.perf_counter()
         pipe(*run_args)
+        enqueues.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        host.append(dict(HOST_S))
     for fn in HAND_WRITTEN.values():
         fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -180,6 +195,11 @@ def main(argv=None):
              f"{config.block_matching.tuning.tile_size}, pipeline {args.pipeline}",
              f"unprofiled warm runs: {', '.join(f'{w:.4f}' for w in walls)} s, "
              f"median {statistics.median(walls):.4f} s",
+             f"  host until the call returns: {', '.join(f'{t:.4f}' for t in enqueues)} "
+             f"s, median {statistics.median(enqueues):.4f} s",
+             "  host ms inside each stage's calls (median of the runs): " + ", ".join(
+                 f"{name} {1e3 * statistics.median(h.get(name, 0.0) for h in host):.2f}"
+                 for name in STAGES if any(name in h for h in host)),
              f"profiled run: wall {wall:.4f} s, kernel-only device time "
              f"{busy_ms:.2f} ms over {n_launch} launches, busy share "
              f"{busy_ms / (wall * 1e3):.3f} of the profiled wall",

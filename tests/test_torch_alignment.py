@@ -47,7 +47,7 @@ def test_extract_flow_patches(fill):
     assert max_abs(got, want) == 0.0
 
 
-@pytest.mark.parametrize("ts", [8, 16, 32])
+@pytest.mark.parametrize("ts", [8, 16, 32, 64])
 def test_match_l2_exact(ts):
     """L2 r=4: edge-clamped windows, displacement added to the unrounded flow."""
     ref, mov, rng = _pair(1, 4 * ts, 5 * ts)
@@ -64,7 +64,7 @@ def test_match_l2_exact(ts):
     np.testing.assert_array_equal(n(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("ts", [8, 16, 32])
+@pytest.mark.parametrize("ts", [8, 16, 32, 64])
 def test_match_l1_exact(ts):
     """L1 r=1: zero-filled windows, flow replaced by round(flow) + d."""
     ref, mov, rng = _pair(2, 4 * ts, 5 * ts, shift=(1, -1))

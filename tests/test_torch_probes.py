@@ -92,3 +92,31 @@ ptxas info    : Used 38 registers, 1024 bytes smem, 420 bytes cmem[0]
                              spill_loads=0),
         "bm_kernel": dict(registers=38, smem_bytes=1024, stack_bytes=8, spill_stores=4,
                           spill_loads=4)}
+
+
+@pytest.mark.parametrize("sym,want", [
+    ("_Z9bm_kernelILi16ELi4ELi1EEvPKfiiiiS1_iiS1_iiiiPi", "bm_kernel<16,4,1>"),
+    ("_Z9bm_kernelILi0ELi0ELi0EEvPKfiiiiS1_iiS1_iiiiPi", "bm_kernel<0,0,0>"),
+    ("_Z11warp_kernelILi3EEvPKfiiS1_iiiiiiiPfPh", "warp_kernel<3>"),
+    ("_Z12merge_kernelPKfiiS0_iS0_iiS0_PfS1_iiiiii", "merge_kernel"),
+    ("_Z1fILin2EEvv", "f<-2>"),
+])
+def test_kernel_name(sym, want):
+    """Integer template arguments of a mangled kernel symbol are kept."""
+    assert _build.kernel_name(sym) == want
+
+
+def test_ptxas_report_instantiations():
+    """A kernel with several instantiations is reported per instantiation."""
+    text = """ptxas info    : Compiling entry function '_Z11warp_kernelILi1EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z11warp_kernelILi1EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z11warp_kernelILi3EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z11warp_kernelILi3EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, 400 bytes cmem[0]
+"""
+    rep = _build.ptxas_report(text)
+    assert sorted(rep) == ["warp_kernel<1>", "warp_kernel<3>"]
+    assert rep["warp_kernel<3>"]["registers"] == 48

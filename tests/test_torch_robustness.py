@@ -44,14 +44,21 @@ def test_compute_guide_image(burst):
                                              impl="slices")) <= 1e-5
 
 
-@pytest.mark.parametrize("ts,big", [(16, True), (32, True), (16, False), (8, True)])
-def test_upscale_warp_stats_tiled(ts, big):
-    lh, lw = 48, 64
-    H, W = 2 * lh, 2 * lw
-    st = np.random.RandomState(ts).rand(3, lh, lw).astype(np.float32)
+@pytest.mark.parametrize("ts,big,u,c", [
+    pytest.param(16, True, 2, 3, id="16-True"), pytest.param(32, True, 2, 3, id="32-True"),
+    pytest.param(16, False, 2, 3, id="16-False"), pytest.param(8, True, 2, 3, id="8-True"),
+    pytest.param(64, True, 2, 3, id="64-True"),
+    pytest.param(16, True, 1, 1, id="16-True-grey"),
+    pytest.param(6, True, 3, 3, id="6-True-u3")])
+def test_upscale_warp_stats_tiled(ts, big, u, c):
+    """The main path's call (3 channels, x2), grey mode's (1 channel, no
+    upscale), and an upscale whose reciprocal is inexact."""
+    lh, lw = 96 // u, 128 // u
+    H, W = u * lh, u * lw
+    st = np.random.RandomState(ts).rand(c, lh, lw).astype(np.float32)
     flow = _flow(ts + 1, -(-H // ts), -(-W // ts), big)
-    got, gv = robustness.upscale_warp_stats_tiled(t(st), 2, ts, t(flow), (H, W))
-    want, wv = j_rob.upscale_warp_stats_tiled(jnp.asarray(st), 2, ts, jnp.asarray(flow),
+    got, gv = robustness.upscale_warp_stats_tiled(t(st), u, ts, t(flow), (H, W))
+    want, wv = j_rob.upscale_warp_stats_tiled(jnp.asarray(st), u, ts, jnp.asarray(flow),
                                               (H, W))
     np.testing.assert_array_equal(n(gv), np.asarray(wv))
     if big:
