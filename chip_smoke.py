@@ -11,23 +11,28 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the six kernels of the path (K1 block matching, K2 ICA step, K3
-   fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge) and the
-   probes P1 and P2 from ``hmsr_tpu_torch/csrc``; print the build seconds,
-   each kernel's registers, static shared memory and spills from the
-   build's kept ``-Xptxas -v`` report (per instantiation of a templated
-   kernel), the launch layouts that the library computes for K1 per (ts,
-   r, metric), K4 per (Ts, u, c) and K5/K5' per (Ts, scale), and the
-   static SASS instructions of K1, K4, K5 and K5' (``cuobjdump -sass`` of
-   the library), in all and in each one's longest loop (K5''s frame loop);
+1. build the six kernels of the path (K1 block matching, K2 ICA
+   Gauss-Newton steps, K3 fused ICA, K4 upscale-warp, K5 merge, K5'
+   burst-fused merge) and the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
+   print the build seconds, each kernel's registers, static shared memory
+   and spills from the build's kept ``-Xptxas -v`` report (per
+   instantiation of a templated kernel), the launch layouts that the
+   library computes for K1 per (ts, r, metric), K2 and K3 per ts, K4 per
+   (Ts, u, c) and K5/K5' per (Ts, scale), and the static SASS instructions
+   of K1-K5' (``cuobjdump -sass`` of the library), in all and in each one's
+   longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
-   levels at Ts=16, 32 and 64, K4, K5 and K5' (5 frames) at Ts=16, 32 and
+   levels at Ts=16, 32 and 64 (K2 as all n_iter steps of a level and as
+   its single step; K2 against K3 without its search, bit for bit), K4,
+   K5 and K5' (5 frames) at Ts=16, 32 and
    64, K4 also at grey mode's one channel and no upscale, K5' also against
-   5 K5 launches (bit for bit); K1 and K4 at shapes off the main paths,
+   5 K5 launches (bit for bit); K1-K4 at shapes off the main paths,
    which reach their instantiations with run-time tile size, radius and
-   upscale (K1: ts 8, 12, 16, 24 with r 1, 2, 4, 16; K4: 4 and 2 channels,
-   u=4, Ts=6 on a width that is no multiple of 4), untimed; then K5 and K5' at
+   upscale (K1: ts 8, 12, 16, 24 with r 1, 2, 4, 16; K2 and K3: ts 12 and
+   24, and every fixed ts on a level with a flat (singular) tile; K4: 4 and
+   2 channels, u=4, Ts=6 on a width that is no multiple of 4), untimed;
+   then K5 and K5' at
    scales 1 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
    kernel's device time alone (:func:`hmsr_tpu_torch.measure.timed`: back
    to back behind a held stream, between CUDA events), the wrapper's host
@@ -72,6 +77,7 @@ from hmsr_tpu_torch import configs, probe_cta_cost
 from hmsr_tpu_torch.measure import bound, card, timed
 from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_sizes,
                                              init_alignment)
+from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.pipeline import make_pipeline
 from hmsr_tpu_torch.models.process import process_arrays
@@ -84,8 +90,9 @@ from hmsr_tpu_torch.synthetic import (ALPHA, BETA, CFA_RGGB, WB, affine_curves,
 KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K1": ("K1 block matching", cuda_ica.block_match, "hmsr_tpu_torch/csrc/bm.cu",
            "hmsr_tpu/ops/pallas_ica.py:756"),
-    "K2": ("K2 ICA Gauss-Newton step", cuda_ica.ica_step,
-           "hmsr_tpu_torch/csrc/ica_step.cu", "hmsr_tpu/ops/pallas_ica.py:447"),
+    "K2": ("K2 ICA Gauss-Newton steps (all n_iter steps of a level, solve included)",
+           cuda_ica.ica_steps, "hmsr_tpu_torch/csrc/ica_step.cu",
+           "hmsr_tpu/ops/pallas_ica.py:447"),
     "K3": ("K3 fused ICA (all Gauss-Newton steps, optional L1 search)",
            cuda_ica.ica_fused, "hmsr_tpu_torch/csrc/ica_fused.cu",
            "hmsr_tpu/ops/pallas_ica_fused.py:175"),
@@ -109,13 +116,15 @@ MAIN_TS = 16            # the bright main path's tile size
 CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5)
 BRIGHT_LAUNCHES = {
-    "scan": {"K1": 76, "K2": 114, "K3": 38, "K4": 21, "K5": 19, "K5'": 0},
-    "chunked": {"K1": 76, "K2": 114, "K3": 38, "K4": 21, "K5": 0, "K5'": 4}}
+    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0},
+    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB)
 MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0}
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
+#: the instantiation of K2 and K3 that the bright main path runs most
+ICA_KERNELS = {"K2": "ica_steps_kernel<16>", "K3": "ica_fused_kernel<16>"}
 CARD = ""               # nvidia-smi name and power limit, set in main()
 
 
@@ -158,8 +167,8 @@ def sass_counts(bases):
 
 def phase_build(raw_shape):
     """Phase 1: build; print each kernel's ptxas resources, the launch
-    layouts of K1, K4, K5 and K5' and the static SASS counts of K1, K4, K5
-    and K5'. Returns the ptxas report."""
+    layouts of K1-K5' and the static SASS counts of K1-K5'. Returns the
+    ptxas report."""
     _build.library()
     log(f"phase 1 built {len(KERNELS)} kernels of the path and {len(PROBES)} probes in "
         f"{_build.build_seconds:.2f} s [{CARD}]")
@@ -191,6 +200,15 @@ def phase_build(raw_shape):
                 f"{g['tiles_per_warp']} tiles per warp x {g['lanes_per_tile']} lanes, "
                 f"{g['threads']} threads per block, bands of {g['band']} tile rows, "
                 f"{g['smem_bytes']} B dynamic shared memory")
+    for ts in (8, 16, 32, 64, *ICA_RUNTIME):
+        for name, fused, bm in (("K2", False, False), ("K3", True, False),
+                                ("K3 with its search", True, True)):
+            g = cuda_ica.ica_layout(ts, fused, bm)
+            log(f"  {name} ts={ts} launch layout: "
+                f"{'its own instantiation' if g['fixed'] else 'run-time ts'}, "
+                f"{g['tiles_per_block']} tiles per block x {g['lanes_per_tile']} lanes, "
+                f"{g['threads']} threads per block, {g['smem_bytes']} B dynamic "
+                "shared memory")
     for Ts, u, c in ((16, 2, 3), (32, 2, 3), (64, 2, 3), (16, 1, 1), (64, 1, 1)):
         g = cuda_warp.warp_layout(Ts, u, c)
         log(f"  K4 Ts={Ts} u={u} c={c} launch layout: "
@@ -198,7 +216,8 @@ def phase_build(raw_shape):
             f"{g['tiles']} tiles of a tile row per block of {g['threads']} threads "
             f"(4 pixels each), window {g['window']}x{g['window']}, "
             f"{g['smem_bytes']} B dynamic shared memory")
-    bases = {"bm_kernel", "warp_kernel", *MERGE_KERNELS.values()}
+    bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
+             *MERGE_KERNELS.values()}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -257,7 +276,7 @@ def time_text(tk):
 def check_alignment_kernels(device, grey_shape, snr, rng, stats):
     """K1, K2 and K3 on every pyramid level of one configuration. Entries
     record whether the main path at this configuration launches the kernel
-    on the level (K2 n_iter times)."""
+    on the level (each at most once a frame)."""
     h, w = grey_shape
     config = burst_config(grey_shape, snr)
     Ts = config.block_matching.tuning.tile_size
@@ -301,46 +320,109 @@ def check_alignment_kernels(device, grey_shape, snr, rng, stats):
             raise AssertionError(f"K1 {key}: {n_diff} displacements differ")
         record(stats, "K1", Ts, 0 if fused_bm else 1, 0.0, tk, ms_p, bnd)
 
+        # K2: all n_iter steps of the level from fractional flows; its
+        # single step against one plain step; K3 without the search gives
+        # the same bits
         fl2 = flow + torch.as_tensor(rng.uniform(-0.99, 0.99, (ny, nx, 2)).astype(
             np.float32), device=device)
-        b_k = cuda_ica.ica_step(lvl, ica.gradx, ica.grady, mov_lvl, fl2, ts)
-        b_p = cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady, mov_lvl, fl2, ts)
-        err = float((b_k - b_p).abs().max())
-        rel = err / max(float(b_p.abs().max()), 1e-30)
-        tk = timed(lambda: cuda_ica.ica_step(lvl, ica.gradx, ica.grady, mov_lvl,
-                                             fl2, ts))
-        ms_p = timed(lambda: cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady,
-                                                     mov_lvl, fl2, ts),
-                     n=3, hold=False).ms
-        # per tile pixel: 3 bilinear lerps (9), the residual (1), 2 products
-        # and 2 sums
-        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, mov_lvl, fl2, b_k), n_px * 14)
-        log(f"  K2 {key}: max|d| {err:.3e} (rel {rel:.3e}), {time_text(tk)}, "
-            f"plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
-        if not rel <= 1e-4:
-            raise AssertionError(f"K2 {key}: relative error {rel:.3e} > 1e-4")
-        record(stats, "K2", Ts, 0 if fused else n_iter, err, tk, ms_p, bnd)
+        k2 = (lvl, ica.gradx, ica.grady, ica.terms, mov_lvl, fl2, ts)
+        f_k = cuda_ica.ica_steps(*k2, n_iter)
+        f_p = cuda_ica.ica_steps_plain(*k2, n_iter)
+        err = float((f_k - f_p).abs().max())
+        err1 = float((cuda_ica.ica_steps(*k2, 1) - cuda_ica.gn_update(
+            fl2, cuda_ica.ica_step_plain(lvl, ica.gradx, ica.grady, mov_lvl, fl2, ts),
+            ica.terms)).abs().max())
+        same_k3 = torch.equal(cuda_ica.ica_fused(*k2, n_iter, False), f_k)
+        tk = timed(lambda: cuda_ica.ica_steps(*k2, n_iter))
+        ms_p = timed(lambda: cuda_ica.ica_steps_plain(*k2, n_iter), n=3, hold=False).ms
+        # per tile pixel and step: 3 bilinear lerps (9), the residual (1), 2
+        # products and 2 sums. The work as now done reads each input once;
+        # the one-step design re-read the reference planes every step.
+        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, ica.terms, mov_lvl, fl2, f_k),
+                    n_px * 14 * n_iter)
+        step_bnd = n_iter * bound(nbytes(lvl, ica.gradx, ica.grady, mov_lvl, fl2, f_k),
+                                  n_px * 14)[0]
+        log(f"  K2 {key}, {n_iter} steps: flow max|d| {err:.3e}, one step {err1:.3e}, "
+            f"K3 without search bit-identical: {same_k3}; {time_text(tk)}, "
+            f"plain {ms_p:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), per-step bound {step_bnd:.4f} ms [{CARD}]")
+        if not (err <= 1e-4 and err1 <= 1e-4 and same_k3):
+            raise AssertionError(f"K2 {key}: flow max|d| {err:.3e}, one step "
+                                 f"{err1:.3e}, K3 equal {same_k3}")
+        record(stats, "K2", Ts, 0 if fused else 1, err, tk, ms_p, bnd,
+               step_bound_ms=step_bnd)
 
         # K3 as the level would run it (the L1 search only on L1 r=1 levels),
         # from fractional flows with half-integer ties
         bm = metric == "L1" and radius == 1
         fl3 = fl2.clone()
         fl3[1::3] = torch.round(fl3[1::3] * 2) / 2
-        terms = cuda_ica.solve_terms(ica.hessian)
-        args = (lvl, ica.gradx, ica.grady, terms, mov_lvl, fl3, ts, n_iter, bm)
+        args = (lvl, ica.gradx, ica.grady, ica.terms, mov_lvl, fl3, ts, n_iter, bm)
         f_k = cuda_ica.ica_fused(*args)
         f_p = cuda_ica.ica_fused_plain(*args)
         err = float((f_k - f_p).abs().max())
         tk = timed(lambda: cuda_ica.ica_fused(*args))
         ms_p = timed(lambda: cuda_ica.ica_fused_plain(*args), n=3, hold=False).ms
-        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, terms, mov_lvl, fl3, f_k),
+        bnd = bound(nbytes(lvl, ica.gradx, ica.grady, ica.terms, mov_lvl, fl3, f_k),
                     n_px * (14 * n_iter + (27 if bm else 0)))
-        log(f"  K3 {key}{' with L1 search' if bm else ''}: flow max|d| {err:.3e}, "
+        # the search alone (no steps): the displacements exactly
+        n_search = int((cuda_ica.ica_fused(*args[:7], 0, True)
+                        != cuda_ica.ica_fused_plain(*args[:7], 0, True)).sum()) if bm else 0
+        log(f"  K3 {key}{' with L1 search' if bm else ''}: flow max|d| {err:.3e}"
+            f"{f', searched flows differing {n_search}' if bm else ''}, "
             f"{time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}) [{CARD}]")
-        if not err <= 1e-4:
-            raise AssertionError(f"K3 {key}: flow max|d| {err:.3e} > 1e-4")
+        if not (err <= 1e-4 and n_search == 0):
+            raise AssertionError(f"K3 {key}: flow max|d| {err:.3e}, searched flows "
+                                 f"differing {n_search}")
         record(stats, "K3", Ts, 1 if fused else 0, err, tk, ms_p, bnd)
+
+
+#: K2 and K3 tile sizes that reach their instantiations with run-time ts
+ICA_RUNTIME = (12, 24)
+
+
+def check_gn_levels(device, rng, ny=6, nx=8):
+    """K2 and K3 on synthetic levels at every fixed tile size and at
+    :data:`ICA_RUNTIME`, against their plain versions: flows within 1e-4
+    (K3 with and without the search), the searched flows exactly, K2 equal
+    to K3 without the search bit for bit, and a singular tile (flat
+    reference over the tile and the pixel row and column after it) keeping
+    its flow exactly. Flows with negative fractions, half-integer ties and a
+    window fully outside the level. Not timed."""
+    for ts in (8, 16, 32, 64, *ICA_RUNTIME):
+        for fused in (False, True):
+            if cuda_ica.ica_layout(ts, fused)["fixed"] != (ts not in ICA_RUNTIME):
+                raise AssertionError(f"{'K3' if fused else 'K2'} ts={ts}: instantiation "
+                                     f"not the expected one")
+        h, w = ny * ts + 3, nx * ts + 5     # a width that is no multiple of 4
+        scene = blocky_scene(rng, h + 8, w + 8, block=max(2, ts // 4))
+        ref = scene[:h, :w] + 0.01 * rng.randn(h, w).astype(np.float32)
+        ref[:ts + 1, :ts + 1] = 0.0
+        ref_t = torch.as_tensor(ref, device=device)
+        mov = torch.as_tensor(scene[2:h + 2, 1:w + 1]
+                              + 0.01 * rng.randn(h, w).astype(np.float32), device=device)
+        st = init_ica(ref_t, ts)
+        fl = rng.uniform(-2.5, 2.5, (ny, nx, 2)).astype(np.float32)
+        fl[1::3] = np.round(fl[1::3] * 2) / 2
+        fl[0, 1] = (-1.75, -0.25)
+        fl[-1, -1] = (-60.0, 45.0)
+        flow = torch.as_tensor(fl, device=device)
+        args = (ref_t, st.gradx, st.grady, st.terms, mov, flow, ts, 3)
+        f2 = cuda_ica.ica_steps(*args)
+        err2 = float((f2 - cuda_ica.ica_steps_plain(*args)).abs().max())
+        same = torch.equal(cuda_ica.ica_fused(*args, False), f2)
+        kept = float(st.terms[0, 0, 0]) == 0.0 and torch.equal(f2[0, 0], flow[0, 0])
+        err3 = float((cuda_ica.ica_fused(*args, True)
+                      - cuda_ica.ica_fused_plain(*args, True)).abs().max())
+        n_search = int((cuda_ica.ica_fused(*args[:7], 0, True)
+                        != cuda_ica.ica_fused_plain(*args[:7], 0, True)).sum())
+        log(f"  K2/K3 ts={ts} level {(h, w)}: K2 flow max|d| {err2:.3e}, K3 = K2 "
+            f"bit-identical: {same}, singular tile kept: {kept}; K3 with search flow "
+            f"max|d| {err3:.3e}, searched flows differing {n_search}")
+        if not (err2 <= 1e-4 and same and kept and err3 <= 1e-4 and n_search == 0):
+            raise AssertionError(f"K2/K3 ts={ts}: {err2:.3e}, {same}, {kept}, {err3:.3e}, "
+                                 f"{n_search}")
 
 
 def random_flow(rng, H, W, Ts, device, lead=()):
@@ -541,6 +623,7 @@ def phase_kernels(device, raw_shape, seed=1):
     # grey mode's call: one channel, no upscale (off the main path)
     check_warp_kernel(device, raw_shape, MAIN_TS, rng, stats, False, c=1, u=1)
     check_runtime_instantiations(device, rng)
+    check_gn_levels(device, rng)
     for s in (1, 3):
         for Ts in (16, 32, 64):
             check_merge_kernels(device, (1024, 1024), Ts, rng, stats, False, s=s)
@@ -589,11 +672,10 @@ def phase_slice(device, size=512, n_frames=8, seed=2):
 
 def expected_launches(ref, config, n_cmp):
     """Launches per burst of each kernel that the path implies: per
-    compared frame and level, K1 then n_iter K2 steps, or K3 on levels under
+    compared frame and level, K1 then K2 (all n_iter steps), or K3 on levels under
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
     else after K1); one K4 per frame and two at init; one K5 per frame
     (scan), or one K5' per chunk of ``tpu.merge_chunk`` frames (chunked)."""
-    n_iter = config.ica.tuning.n_iter
     state = init_alignment(compute_grey_image(ref, "FFT"), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
@@ -602,7 +684,7 @@ def expected_launches(ref, config, n_cmp):
             k1 += 0 if (metric == "L1" and radius == 1) else 1
         else:
             k1 += 1
-            k2 += n_iter
+            k2 += 1
     tpu = config.get("tpu", {})
     chunked = tpu.get("pipeline", "auto") == "chunked"
     fc = max(1, min(int(tpu.get("merge_chunk", 5)), n_cmp))
@@ -807,8 +889,10 @@ def main():
             "library_ms": None}
         if key == "K5'":
             entry["k5_sequential_ms"] = per_frame("seq_ms")
-        if key in MERGE_KERNELS:
-            entry["registers"] = ptxas[MERGE_KERNELS[key]]["registers"]
+        if key == "K2":
+            entry["per_step_bound_ms"] = per_frame("step_bound_ms")
+        if key in MERGE_KERNELS or key in ICA_KERNELS:
+            entry["registers"] = ptxas[{**MERGE_KERNELS, **ICA_KERNELS}[key]]["registers"]
         entries.append(entry)
     # the probes: not on the path (0 launches there); P1 at its largest grid
     for key, row in (("P1", p1["empty"][-1]), ("P2", p2[-1])):

@@ -95,80 +95,333 @@ __device__ __forceinline__ int first_min(const float* cost, int nc) {
   return best;
 }
 
-// ---------------------------------------------------------------------------
-// ICA Gauss-Newton right-hand side (K2, and every iteration of K3)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float zero_tap(const float* __restrict__ mov,
-                                          int h, int w, int y, int x) {
-  return (y >= 0 && y < h && x >= 0 && x < w) ? mov[(size_t)y * w + x] : 0.0f;
+// 4-byte asynchronous copy from global to shared memory; src_bytes 0 writes
+// a zero and reads nothing.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// This thread's share of b = sum -grad_ref * (warp(moving) - ref) over tile
-// (ty, tx) at flow (ax, ay): the flow splits by truncation toward zero
-// (negative flows give negative fractions), the bilinear taps read 0 out of
-// bounds, and zero taps still contribute gradt = -ref.
-__device__ __forceinline__ void ica_partial(
-    const float* __restrict__ ref, const float* __restrict__ gx,
-    const float* __restrict__ gy, int ref_w, const float* __restrict__ mov,
-    int h, int w, int ty, int tx, int ts, float ax, float ay, float& s0,
-    float& s1) {
-  const float ix = truncf(ax);
-  const float iy = truncf(ay);
-  const float frac_x = ax - ix;
-  const float frac_y = ay - iy;
-  const int oy = ty * ts + (int)iy;
-  const int ox = tx * ts + (int)ix;
-  s0 = 0.0f;
-  s1 = 0.0f;
-  for (int p = threadIdx.x; p < ts * ts; p += blockDim.x) {
-    const int y = p / ts;
-    const int x = p - y * ts;
-    const float m00 = zero_tap(mov, h, w, oy + y, ox + x);
-    const float m01 = zero_tap(mov, h, w, oy + y, ox + x + 1);
-    const float m10 = zero_tap(mov, h, w, oy + y + 1, ox + x);
-    const float m11 = zero_tap(mov, h, w, oy + y + 1, ox + x + 1);
-    const float top = m00 + (m01 - m00) * frac_x;
-    const float bot = m10 + (m11 - m10) * frac_x;
-    const float interp = top + (bot - top) * frac_y;
-    const size_t ri = (size_t)(ty * ts + y) * ref_w + tx * ts + x;
-    const float gradt = interp - ref[ri];
-    s0 += -gx[ri] * gradt;
-    s1 += -gy[ri] * gradt;
+// ---------------------------------------------------------------------------
+// ICA Gauss-Newton steps (K2, and the steps of K3 after its search)
+// ---------------------------------------------------------------------------
+//
+// Semantics of hmsr_tpu/models/ica.py:refine_ica_tiled, per tile and step:
+// the flow (ax, ay) splits by truncation toward zero (negative flows give
+// negative fractions); the bilinear taps come from the (ts+1)^2 window of
+// the moving level at the tile's origin + trunc(flow), zero outside the
+// level (zero taps still contribute gradt = -ref); b = sum -grad * (interp -
+// ref) over the tile; then the 2x2 solve with the tile's terms (det_inv,
+// a00, a01, a10, a11, from the Hessian once per burst), the flow kept as it
+// is where det_inv == 0 (|det| < 1e-10).
+//
+// A tile is worked by `lanes` threads (ica_layout), about ICA_PIXELS_PER_LANE
+// pixels each: one warp up to ts = 16, 4 at ts = 32, 16 at ts = 64. IcaTile
+// holds the lane's pixels of ref, gx and gy and the five terms in registers
+// for all steps (loaded once); each step stages the window in shared memory
+// (zero outside the level, so no tap is bounds-tested), sums the lane's
+// pixels in a fixed order, reduces the tile with xor-shuffles (every lane
+// gets the same bits: float addition commutes) and, on tiles of several
+// warps, adds the warp sums in warp order through shared memory. Every lane
+// then solves for itself, so the new flow needs no broadcast. Each pixel
+// keeps the operations, in their order, of the plain version
+// (ica_step_plain + gn_update); only the order of the pixel sums differs.
+// K2 and K3 run this code with the same lanes per tile, so their flows are
+// bit-identical.
+
+constexpr int ICA_PIXELS_PER_LANE = 8;
+constexpr int ICA_MAX_LANES = 512;
+// K2 packs tiles into blocks of this many threads (at least one tile).
+constexpr int ICA_K2_THREADS = 256;
+
+// Launch layout of tile size ts: `lanes` threads per tile (a multiple of
+// 32), `tiles` tiles per block (K2: block_threads / lanes; K3, which passes
+// 0: one), and per tile `tile_floats` of dynamic shared memory: `stage`
+// staged floats (the (ts+1)^2 window; with the search of K3 its (ts+2)^2
+// window, the ts^2 reference tile and 9 costs, which the Gauss-Newton window
+// then overwrites) and 2 per warp for the warp sums.
+struct IcaLayout {
+  int lanes, tiles, stage, tile_floats, smem_bytes;
+};
+
+__host__ __device__ constexpr IcaLayout ica_layout(int ts, int block_threads,
+                                                   bool bm) {
+  IcaLayout L{};
+  const int want = (ts * ts + ICA_PIXELS_PER_LANE - 1) / ICA_PIXELS_PER_LANE;
+  const int lanes = (want + 31) / 32 * 32;
+  L.lanes = lanes < ICA_MAX_LANES ? lanes : ICA_MAX_LANES;
+  L.tiles = block_threads / L.lanes > 1 ? block_threads / L.lanes : 1;
+  const int win = (ts + 1) * (ts + 1);
+  const int search = (ts + 2) * (ts + 2) + ts * ts + 9;
+  L.stage = bm && search > win ? search : win;
+  L.tile_floats = L.stage + 2 * (L.lanes / 32);
+  L.smem_bytes = 4 * L.tiles * L.tile_floats;
+  return L;
+}
+
+// The level a launch works on: the reference level and its gradients (same
+// shape, row stride ref_w) and the moving level (h, w). `align`: the
+// largest of 4, 2, 1 floats to which the three reference pointers and ref_w
+// are aligned (vector loads of the tile need it).
+struct IcaLevel {
+  const float* ref;
+  const float* gx;
+  const float* gy;
+  int ref_w, align;
+  const float* mov;
+  int h, w;
+};
+
+// Synchronises the threads of a tile: its warp, or the block (whose tiles
+// all run the same steps) for tiles of several warps.
+__device__ __forceinline__ void ica_tile_sync(int warps) {
+  if (warps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
   }
 }
 
-// Block-wide sum of (s0, s1) for blockDim.x a multiple of 32 (at most
-// 1024): warp shuffles, then thread 0 adds the warps' sums in order. The
-// result is valid in thread 0 only; callers __syncthreads() before reusing
-// ``red``.
-__device__ __forceinline__ void block_sum2(float& s0, float& s1,
-                                           float (*red)[32]) {
+// The tile's sum of (s0, s1) in every lane: xor-shuffles in the warp, then
+// the warp sums in warp order (red: 2 floats per warp).
+__device__ __forceinline__ float2 ica_tile_sum(float s0, float s1, float* red,
+                                               int g, int warps) {
   for (int o = 16; o > 0; o >>= 1) {
-    s0 += __shfl_down_sync(0xffffffffu, s0, o);
-    s1 += __shfl_down_sync(0xffffffffu, s1, o);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[0][warp] = s0;
-    red[1][warp] = s1;
+  if (warps == 1) return make_float2(s0, s1);
+  if ((g & 31) == 0) {
+    red[2 * (g >> 5)] = s0;
+    red[2 * (g >> 5) + 1] = s1;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t0 = 0.0f, t1 = 0.0f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-      t0 += red[0][i];
-      t1 += red[1][i];
-    }
-    s0 = t0;
-    s1 = t1;
+  float b0 = red[0], b1 = red[1];
+  for (int i = 1; i < warps; ++i) {
+    b0 += red[2 * i];
+    b1 += red[2 * i + 1];
   }
+  return make_float2(b0, b1);
 }
 
-// Threads per tile of the ICA kernels: one per tile pixel, at most 256.
-inline int ica_threads(int ts) {
-  return ts * ts < 256 ? ((ts * ts + 31) / 32) * 32 : 256;
+// Stages the n x n window of the moving level at (top, left) into win (row
+// stride n) with cp.async, zero outside the level; the tile's `lanes` lanes
+// share it (N: n at compile time, 0 at run time). On an H100 cp.async was
+// faster than plain loads and stores (K2 at Ts = 16: 0.127 against 0.135 ms
+// a frame, PERF.md section 6).
+template <int N>
+__device__ __forceinline__ void ica_stage(float* win, const IcaLevel& lv,
+                                          int top, int left, int n_rt, int g,
+                                          int lanes) {
+  const int n = N > 0 ? N : n_rt;
+  for (int e = g; e < n * n; e += lanes) {
+    const int a = e / n;
+    const int yy = top + a;
+    const int xx = left + e - a * n;
+    const bool in = (unsigned)yy < (unsigned)lv.h && (unsigned)xx < (unsigned)lv.w;
+    cp_async_f32(win + e, lv.mov + (in ? (size_t)yy * lv.w + xx : 0), in ? 4 : 0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Loads CW consecutive floats, as one vector where `align` allows.
+template <int CW>
+__device__ __forceinline__ void ica_load(const float* __restrict__ p,
+                                         int align, float* out) {
+  if constexpr (CW == 4) {
+    if (align >= 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      out[0] = v.x;
+      out[1] = v.y;
+      out[2] = v.z;
+      out[3] = v.w;
+      return;
+    }
+  } else if constexpr (CW == 2) {
+    if (align >= 2) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+      out[0] = v.x;
+      out[1] = v.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CW; ++k) out[k] = __ldg(p + k);
+}
+
+// One tile of the Gauss-Newton steps, seen from lane g. TS: the tile size
+// at compile time, or 0 for one at run time. With TS, the lane owns NCH
+// consecutive rows of CW consecutive pixels (rows NCH * (g / CPR) ..., from
+// column CW * (g % CPR)), loaded as vectors; its taps come from NCH + 1
+// window rows, and each window row's horizontal lerp serves as the bottom
+// of one pixel row and the top of the next (the same operations, so the same
+// bits). With ts at run time, the lane takes pixels g, g + lanes, ... in
+// row-major order and reads ref, gx and gy from global memory each step.
+template <int TS>
+struct IcaTile {
+  static constexpr int LANES = TS > 0 ? ica_layout(TS, 0, false).lanes : 0;
+  static constexpr int PPL = TS > 0 ? TS * TS / LANES : 1;
+  static constexpr int CW = PPL < 4 ? PPL : 4;
+  static constexpr int NCH = PPL / CW;
+  static constexpr int CPR = TS > 0 ? TS / CW : 1;
+  static_assert(TS == 0 || (PPL * LANES == TS * TS && NCH * CW == PPL &&
+                            CPR * CW == TS),
+                "tile size without a lane layout");
+
+  int ts, lanes, ty, tx, g, row0, col;
+  float t[5];
+  float r[NCH][CW], x[NCH][CW], y[NCH][CW];
+
+  // Reads the terms (5 floats) and, with TS, the lane's reference pixels.
+  __device__ __forceinline__ void load(const IcaLevel& lv, int ts_rt, int ty_,
+                                       int tx_, int g_,
+                                       const float* __restrict__ terms) {
+    ts = TS > 0 ? TS : ts_rt;
+    lanes = TS > 0 ? LANES : ica_layout(ts_rt, 0, false).lanes;
+    ty = ty_;
+    tx = tx_;
+    g = g_;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) t[i] = terms[i];
+    if constexpr (TS > 0) {
+      row0 = NCH * (g / CPR);
+      col = (g % CPR) * CW;
+      const size_t base = (size_t)(ty * TS + row0) * lv.ref_w + tx * TS + col;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const size_t o = base + (size_t)j * lv.ref_w;
+        ica_load<CW>(lv.ref + o, lv.align, r[j]);
+        ica_load<CW>(lv.gx + o, lv.align, x[j]);
+        ica_load<CW>(lv.gy + o, lv.align, y[j]);
+      }
+    }
+  }
+
+  // The lane's share of b at flow fraction (fx, fy) from the staged window.
+  __device__ __forceinline__ float2 partial(const IcaLevel& lv,
+                                            const float* win, float fx,
+                                            float fy) const {
+    float s0 = 0.0f, s1 = 0.0f;
+    if constexpr (TS > 0) {
+      constexpr int W = TS + 1;
+      float prev[CW];
+#pragma unroll
+      for (int j = 0; j <= NCH; ++j) {
+        const float* wr = win + (row0 + j) * W + col;
+        float cur[CW];
+#pragma unroll
+        for (int k = 0; k < CW; ++k) {
+          const float m0 = wr[k];
+          const float m1 = wr[k + 1];
+          cur[k] = m0 + (m1 - m0) * fx;
+        }
+        if (j > 0) {
+#pragma unroll
+          for (int k = 0; k < CW; ++k) {
+            const float interp = prev[k] + (cur[k] - prev[k]) * fy;
+            const float gradt = interp - r[j - 1][k];
+            s0 += -x[j - 1][k] * gradt;
+            s1 += -y[j - 1][k] * gradt;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < CW; ++k) prev[k] = cur[k];
+      }
+    } else {
+      const int W = ts + 1;
+      const size_t rbase = (size_t)ty * ts * lv.ref_w + (size_t)tx * ts;
+      int py = g / ts;
+      int px = g - py * ts;
+      for (int p = g; p < ts * ts; p += lanes) {
+        const float* wr = win + py * W + px;
+        const float m00 = wr[0];
+        const float m01 = wr[1];
+        const float m10 = wr[W];
+        const float m11 = wr[W + 1];
+        const float top = m00 + (m01 - m00) * fx;
+        const float bot = m10 + (m11 - m10) * fx;
+        const float interp = top + (bot - top) * fy;
+        const size_t ri = rbase + (size_t)py * lv.ref_w + px;
+        const float gradt = interp - __ldg(lv.ref + ri);
+        s0 += -__ldg(lv.gx + ri) * gradt;
+        s1 += -__ldg(lv.gy + ri) * gradt;
+        px += lanes;
+        while (px >= ts) {
+          px -= ts;
+          ++py;
+        }
+      }
+    }
+    return make_float2(s0, s1);
+  }
+
+  // n_iter steps from flow fl; every lane of the tile returns the same
+  // flow. win: the tile's staged floats, red: its 2 per warp.
+  __device__ __forceinline__ float2 steps(const IcaLevel& lv, float2 fl,
+                                          int n_iter, float* win,
+                                          float* red) const {
+    const int n = TS > 0 ? TS : ts;
+    const int nl = TS > 0 ? LANES : lanes;
+    const int warps = nl >> 5;
+    for (int it = 0; it < n_iter; ++it) {
+      const float ix = truncf(fl.x);
+      const float iy = truncf(fl.y);
+      const float fx = fl.x - ix;
+      const float fy = fl.y - iy;
+      // the previous step's reads of the window are done (tiles of several
+      // warps passed the barrier of ica_tile_sum since)
+      if (warps == 1) __syncwarp();
+      ica_stage<(TS > 0 ? TS + 1 : 0)>(win, lv, ty * n + (int)iy,
+                                       tx * n + (int)ix, n + 1, g, nl);
+      ica_tile_sync(warps);
+      const float2 p = partial(lv, win, fx, fy);
+      const float2 b = ica_tile_sum(p.x, p.y, red, g, warps);
+      if (t[0] != 0.0f) {
+        const float dx = t[0] * (t[4] * b.x - t[2] * b.y);
+        const float dy = t[0] * (-t[3] * b.x + t[1] * b.y);
+        fl.x = fl.x + dx;
+        fl.y = fl.y + dy;
+      }
+    }
+    return fl;
+  }
+};
+
+// IcaLevel of the C entry points.
+inline IcaLevel ica_level(const float* ref, const float* gx, const float* gy,
+                          int ref_w, const float* mov, int h, int w) {
+  const unsigned long long bits = (unsigned long long)ref |
+                                  (unsigned long long)gx |
+                                  (unsigned long long)gy;
+  int align = 1;
+  if (bits % 16 == 0 && ref_w % 4 == 0) {
+    align = 4;
+  } else if (bits % 8 == 0 && ref_w % 2 == 0) {
+    align = 2;
+  }
+  return IcaLevel{ref, gx, gy, ref_w, align, mov, h, w};
+}
+
+// Tile sizes with instantiations of their own in K2 and K3 (the levels of
+// the main paths at Ts = 16, 32, 64); any other runs the TS = 0 kernel.
+#define ICA_FIXED_TS(X) X(8) X(16) X(32) X(64)
+
+inline bool ica_fixed(int ts) {
+#define ICA_IS(TS_) || ts == TS_
+  return false ICA_FIXED_TS(ICA_IS);
+#undef ICA_IS
+}
+
+// Raises the dynamic shared-memory limit of `kernel` to `bytes` when they
+// exceed the 48 KB default; the card refuses what is beyond its own limit.
+template <typename Kernel>
+inline cudaError_t ica_smem_setup(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 
@@ -343,16 +596,6 @@ inline MergeCfa merge_cfa_masks(int cfa) {
     c.m[pq] = m;
   }
   return c;
-}
-
-// 4-byte asynchronous copy from global to shared memory; src_bytes 0 writes
-// a zero and reads nothing.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
 }
 
 // The flow (x, y) of tile (ty, tx).

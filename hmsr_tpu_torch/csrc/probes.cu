@@ -62,6 +62,33 @@ extern "C" int hmsr_cta_probe(int kind, const float* in, int n, float* out,
   return (int)cudaGetLastError();
 }
 
+// Block-wide sum of (s0, s1) for blockDim.x a multiple of 32 (at most
+// 1024): warp shuffles, then thread 0 adds the warps' sums in order. The
+// result is valid in thread 0 only.
+__device__ __forceinline__ void block_sum2(float& s0, float& s1,
+                                           float (*red)[32]) {
+  for (int o = 16; o > 0; o >>= 1) {
+    s0 += __shfl_down_sync(0xffffffffu, s0, o);
+    s1 += __shfl_down_sync(0xffffffffu, s1, o);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[0][warp] = s0;
+    red[1][warp] = s1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t0 = 0.0f, t1 = 0.0f;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+      t0 += red[0][i];
+      t1 += red[1][i];
+    }
+    s0 = t0;
+    s1 = t1;
+  }
+}
+
 __global__ void row_block_sum_kernel(const float* __restrict__ x, int h, int w,
                                      float* __restrict__ out) {
   __shared__ float red[2][32];

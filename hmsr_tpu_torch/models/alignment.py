@@ -4,12 +4,14 @@ Per frame: a Gaussian pyramid descent of {upscale flow -> integer block
 matching -> ``n_iter`` ICA Gauss-Newton steps} on every level. The reference
 grey image is wrap-padded to a tile-size multiple and its pyramid, tiles,
 gradients and Hessians are computed once per burst; the moving pyramid is
-built from the unpadded frame.
+built from the unpadded frame. The Gauss-Newton solve terms of every level
+come with the reference state (:func:`hmsr_tpu_torch.models.ica.init_ica`).
 
-A level with at least :data:`FUSED_GN_MAX_TILES` tiles runs K1 once and K2
-``n_iter`` times. A smaller level runs its Gauss-Newton steps in one K3
-launch, which also does the search when it is L1 with radius 1 (else K1
-runs first), as the JAX package picks its fused kernel.
+A level with at least :data:`FUSED_GN_MAX_TILES` tiles runs K1 once and
+then its ``n_iter`` Gauss-Newton steps in one K2 launch. A smaller level
+runs its steps in one K3 launch, which also does the search when it is L1
+with radius 1 (else K1 runs first), as the JAX package picks its fused
+kernel.
 """
 
 from typing import List, NamedTuple

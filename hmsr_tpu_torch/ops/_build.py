@@ -43,9 +43,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "hmsr_block_match": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                          _I, _P, _P],
-    "hmsr_ica_step": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    "hmsr_ica_steps": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                       _P],
     "hmsr_ica_fused": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _P],
+    "hmsr_ica_layout": [_I, _I, _I, _P],
     "hmsr_upscale_warp": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "hmsr_warp_layout": [_I, _I, _I, _P],
     "hmsr_bm_layout": [_I, _I, _I, _I, _P],

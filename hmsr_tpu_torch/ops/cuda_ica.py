@@ -1,6 +1,6 @@
-"""K1 (block matching), K2 (one ICA Gauss-Newton step) and K3 (all ICA
-steps of a tile in one launch): CUDA kernel wrappers and their plain
-PyTorch versions.
+"""K1 (block matching), K2 (all ICA Gauss-Newton steps of a large level in
+one launch) and K3 (all ICA steps of a small level in one launch, optionally
+after an L1 search): CUDA kernel wrappers and their plain PyTorch versions.
 
 Counterpart of :mod:`hmsr_tpu.ops.pallas_ica` and
 :mod:`hmsr_tpu.ops.pallas_ica_fused`. The kernels are ``csrc/bm.cu``
@@ -161,45 +161,6 @@ def ica_step_plain(ref_lvl, gradx, grady, moving, flow, tile_size):
     return torch.stack([b0, b1], dim=-1)
 
 
-def ica_step(ref_lvl, gradx, grady, moving, flow, tile_size):
-    """K2: one Gauss-Newton right-hand side ``b`` (ny, nx, 2) per tile.
-
-    ``ref_lvl``, ``gradx``, ``grady``: the reference level and its gradients,
-    same shape, contiguous; tiles are carved from their top-left
-    ``ny*ts x nx*ts`` region. ``moving``: (h, w) contiguous; ``flow``:
-    (ny, nx, 2) contiguous.
-    """
-    ts = int(tile_size)
-    dev = moving.device
-    for name, t in (("ref_lvl", ref_lvl), ("gradx", gradx), ("grady", grady),
-                    ("moving", moving)):
-        _build.check_f32(name, t, 2, dev)
-    _build.check_f32("flow", flow, 3, dev)
-    ny, nx = flow.shape[:2]
-    _build.check_arg(ref_lvl.shape == gradx.shape == grady.shape,
-           "ref_lvl, gradx and grady must share a shape")
-    _build.check_arg(ny * ts <= ref_lvl.shape[0] and nx * ts <= ref_lvl.shape[1]
-           and flow.shape[2] == 2,
-           f"flow {tuple(flow.shape)} does not fit level {tuple(ref_lvl.shape)}")
-    if dev.type == "cpu":
-        return ica_step_plain(ref_lvl, gradx, grady, moving, flow, ts)
-    _build.require_cuda(dev)
-    _build.check_arg(all(t.is_contiguous() for t in (ref_lvl, gradx, grady, moving, flow)),
-           "ica_step inputs must be contiguous")
-    b = torch.empty((ny, nx, 2), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    code = lib.hmsr_ica_step(
-        _build.ptr(ref_lvl), _build.ptr(gradx), _build.ptr(grady),
-        ref_lvl.shape[1], _build.ptr(moving), moving.shape[0], moving.shape[1],
-        _build.ptr(flow), ny, nx, ts, _build.ptr(b), _build.stream_of(moving))
-    _build.check(code, "hmsr_ica_step")
-    ica_step.launches += 1
-    return b
-
-
-ica_step.launches = 0
-
-
 def solve_terms(hessian):
     """Per-tile terms of the Gauss-Newton solve, (ny, nx, 5) float32:
     ``det_inv, a00, a01, a10, a11`` of the 2x2 Hessian; ``det_inv`` is 0 on
@@ -224,11 +185,21 @@ def gn_update(flow, b, terms):
     return torch.where((det_inv != 0)[..., None], upd, flow)
 
 
+def ica_steps_plain(ref_lvl, gradx, grady, terms, moving, flow, tile_size, n_iter):
+    """Plain version of K2: ``n_iter`` times :func:`ica_step_plain` and
+    :func:`gn_update`; returns the new (ny, nx, 2) flow."""
+    fl = flow
+    for _ in range(int(n_iter)):
+        fl = gn_update(fl, ica_step_plain(ref_lvl, gradx, grady, moving, fl, tile_size),
+                       terms)
+    return fl
+
+
 def ica_fused_plain(ref_lvl, gradx, grady, terms, moving, flow, tile_size,
                     n_iter, bm):
     """Plain version of K3: with ``bm``, the L1 radius-1 search of
     :func:`block_match_plain` and the flow replaced by ``round(flow) + d``;
-    then ``n_iter`` times :func:`ica_step_plain` and :func:`gn_update`."""
+    then :func:`ica_steps_plain`."""
     ts = int(tile_size)
     ny, nx = flow.shape[:2]
     fl = flow
@@ -236,21 +207,11 @@ def ica_fused_plain(ref_lvl, gradx, grady, terms, moving, flow, tile_size,
         tiles = ref_lvl[:ny * ts, :nx * ts].reshape(ny, ts, nx, ts).permute(0, 2, 1, 3)
         fl = torch.round(fl)
         fl = fl + block_match_plain(tiles, moving, fl, ts, 1, "L1").to(fl.dtype)
-    for _ in range(int(n_iter)):
-        fl = gn_update(fl, ica_step_plain(ref_lvl, gradx, grady, moving, fl, ts), terms)
-    return fl
+    return ica_steps_plain(ref_lvl, gradx, grady, terms, moving, fl, ts, n_iter)
 
 
-def ica_fused(ref_lvl, gradx, grady, terms, moving, flow, tile_size, n_iter,
-              bm):
-    """K3: ``n_iter`` Gauss-Newton steps per tile in one launch, after an L1
-    radius-1 block-matching search when ``bm``; returns the new (ny, nx, 2)
-    flow.
-
-    Operands as for :func:`ica_step`; ``terms``: (ny, nx, 5) from
-    :func:`solve_terms`, contiguous.
-    """
-    ts = int(tile_size)
+def _check_gn_operands(ref_lvl, gradx, grady, terms, moving, flow, ts):
+    """Argument checks shared by K2 and K3; returns (device, ny, nx)."""
     dev = moving.device
     for name, t in (("ref_lvl", ref_lvl), ("gradx", gradx), ("grady", grady),
                     ("moving", moving)):
@@ -264,23 +225,79 @@ def ica_fused(ref_lvl, gradx, grady, terms, moving, flow, tile_size, n_iter,
                      and flow.shape[2] == 2 and tuple(terms.shape) == (ny, nx, 5),
                      f"flow {tuple(flow.shape)}, terms {tuple(terms.shape)} do not "
                      f"fit level {tuple(ref_lvl.shape)}")
+    if dev.type != "cpu":
+        _build.require_cuda(dev)
+        _build.check_arg(all(t.is_contiguous() for t in (ref_lvl, gradx, grady, moving,
+                                                          flow, terms)),
+                         "Gauss-Newton operands must be contiguous")
+    return dev, ny, nx
+
+
+def _gn_args(ref_lvl, gradx, grady, terms, moving, flow):
+    return (_build.ptr(ref_lvl), _build.ptr(gradx), _build.ptr(grady),
+            ref_lvl.shape[1], _build.ptr(moving), moving.shape[0], moving.shape[1],
+            _build.ptr(flow), _build.ptr(terms))
+
+
+def ica_steps(ref_lvl, gradx, grady, terms, moving, flow, tile_size, n_iter):
+    """K2: ``n_iter`` Gauss-Newton steps of every tile of a level in one
+    launch, the 2x2 solve included; returns the new (ny, nx, 2) flow.
+
+    ``ref_lvl``, ``gradx``, ``grady``: the reference level and its gradients,
+    same shape, contiguous; tiles are carved from their top-left
+    ``ny*ts x nx*ts`` region. ``terms``: (ny, nx, 5) from
+    :func:`solve_terms`; ``moving``: (h, w); ``flow``: (ny, nx, 2); all
+    contiguous.
+    """
+    ts = int(tile_size)
+    dev, ny, nx = _check_gn_operands(ref_lvl, gradx, grady, terms, moving, flow, ts)
+    if dev.type == "cpu":
+        return ica_steps_plain(ref_lvl, gradx, grady, terms, moving, flow, ts, n_iter)
+    out = torch.empty((ny, nx, 2), dtype=torch.float32, device=dev)
+    code = _build.library().hmsr_ica_steps(
+        *_gn_args(ref_lvl, gradx, grady, terms, moving, flow), ny, nx, ts,
+        int(n_iter), _build.ptr(out), _build.stream_of(moving))
+    _build.check(code, "hmsr_ica_steps")
+    ica_steps.launches += 1
+    return out
+
+
+ica_steps.launches = 0
+
+
+def ica_fused(ref_lvl, gradx, grady, terms, moving, flow, tile_size, n_iter,
+              bm):
+    """K3: ``n_iter`` Gauss-Newton steps per tile in one launch, after an L1
+    radius-1 block-matching search when ``bm``; returns the new (ny, nx, 2)
+    flow. Operands as for :func:`ica_steps`.
+    """
+    ts = int(tile_size)
+    dev, ny, nx = _check_gn_operands(ref_lvl, gradx, grady, terms, moving, flow, ts)
     if dev.type == "cpu":
         return ica_fused_plain(ref_lvl, gradx, grady, terms, moving, flow, ts,
                                n_iter, bm)
-    _build.require_cuda(dev)
-    _build.check_arg(all(t.is_contiguous() for t in (ref_lvl, gradx, grady, moving,
-                                                      flow, terms)),
-                     "ica_fused inputs must be contiguous")
     out = torch.empty((ny, nx, 2), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    code = lib.hmsr_ica_fused(
-        _build.ptr(ref_lvl), _build.ptr(gradx), _build.ptr(grady),
-        ref_lvl.shape[1], _build.ptr(moving), moving.shape[0], moving.shape[1],
-        _build.ptr(flow), _build.ptr(terms), ny, nx, ts, int(n_iter), int(bool(bm)),
-        _build.ptr(out), _build.stream_of(moving))
+    code = _build.library().hmsr_ica_fused(
+        *_gn_args(ref_lvl, gradx, grady, terms, moving, flow), ny, nx, ts,
+        int(n_iter), int(bool(bm)), _build.ptr(out), _build.stream_of(moving))
     _build.check(code, "hmsr_ica_fused")
     ica_fused.launches += 1
     return out
 
 
 ica_fused.launches = 0
+
+
+def ica_layout(tile_size, fused, bm=False):
+    """The launch layout of K2 (``fused`` False) or K3 (with its search when
+    ``bm``) at ``tile_size``, as the built library computes it: ``fixed``
+    (an instantiation of its own, else the one with run-time ts),
+    ``tiles_per_block``, ``lanes_per_tile``, ``threads`` per block and
+    ``smem_bytes`` of dynamic shared memory per block. Needs the CUDA
+    toolchain (it builds the library), not a card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().hmsr_ica_layout(int(tile_size), int(bool(fused)),
+                                                   int(bool(bm)), out),
+                 "hmsr_ica_layout")
+    return dict(fixed=bool(out[0]), tiles_per_block=out[1], lanes_per_tile=out[2],
+                threads=out[3], smem_bytes=out[4])

@@ -56,7 +56,7 @@ STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
           "_merge_burst_chunked", "merge_ref_tiled", "normalize_accum")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
 #: hand-written kernel -> the wrapper that launches it (and counts launches)
-HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_step_kernel": cuda_ica.ica_step,
+HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.ica_steps,
                 "ica_fused_kernel": cuda_ica.ica_fused,
                 "warp_kernel": cuda_warp.upscale_warp,
                 "merge_kernel": cuda_merge.merge_accumulate,
@@ -64,7 +64,7 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_step_kernel": cuda_ica.i
 #: stage -> (hand-written kernel, its launches per burst from that stage);
 #: None stands for "every launch of the burst".
 LAUNCHED_BY = {
-    "align": (("bm_kernel", None), ("ica_step_kernel", None), ("ica_fused_kernel", None)),
+    "align": (("bm_kernel", None), ("ica_steps_kernel", None), ("ica_fused_kernel", None)),
     "compute_robustness": (("warp_kernel", "n_cmp"),),
     "init_robustness": (("warp_kernel", 2),),
     "merge_tiled": (("merge_kernel", None),),

@@ -1,4 +1,4 @@
-"""The port's alignment (K1 block matching, K2 ICA step, K3 fused ICA)
+"""The port's alignment (K1 block matching, K2 ICA steps, K3 fused ICA)
 against the JAX package.
 
 Block-matching displacements must agree exactly; ICA flows within 1e-4.
@@ -196,11 +196,10 @@ def test_cpu_wrappers_launch_no_kernel():
     ref, mov, _ = _pair(7, 32, 32)
     flow = torch.zeros((2, 2, 2))
     cuda_ica.block_match(t(_tiles(ref, 16)), t(mov), flow, 16, 4, "L2")
-    grads = ica.init_ica(t(ref), 16)
-    cuda_ica.ica_step(t(ref), grads.gradx, grads.grady, t(mov), flow, 16)
-    terms = cuda_ica.solve_terms(grads.hessian)
+    st = ica.init_ica(t(ref), 16)
+    cuda_ica.ica_steps(t(ref), st.gradx, st.grady, st.terms, t(mov), flow, 16, 3)
     for bm in (False, True):
-        cuda_ica.ica_fused(t(ref), grads.gradx, grads.grady, terms, t(mov), flow, 16, 3, bm)
+        cuda_ica.ica_fused(t(ref), st.gradx, st.grady, st.terms, t(mov), flow, 16, 3, bm)
     assert kernel_counts() == before == (0,) * 6
     with pytest.raises(ValueError):
         cuda_ica.block_match(t(_tiles(ref, 16)), t(mov), flow.double(), 16, 4, "L2")

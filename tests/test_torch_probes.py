@@ -120,3 +120,31 @@ ptxas info    : Used 48 registers, 400 bytes cmem[0]
     rep = _build.ptxas_report(text)
     assert sorted(rep) == ["warp_kernel<1>", "warp_kernel<3>"]
     assert rep["warp_kernel<3>"]["registers"] == 48
+
+
+def _c_entry_points():
+    """``{name: [parameter, ...]}`` of every ``extern "C"`` function in csrc."""
+    import glob
+    import os
+    import re
+    out = {}
+    for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
+        with open(path) as f:
+            text = f.read()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            out[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_matches_c_entry_point(name):
+    """Each ctypes signature has the C entry point's parameters, a pointer
+    (c_void_p) where C takes one and a c_int where C takes an int."""
+    params = _c_entry_points()[name]
+    want = [_build._P if "*" in p else _build._I for p in params]
+    assert [p for p in params if "*" not in p and not p.startswith("int ")] == []
+    assert _build.SIGNATURES[name] == want
+
+
+def test_every_c_entry_point_has_a_signature():
+    assert sorted(_c_entry_points()) == sorted(_build.SIGNATURES)

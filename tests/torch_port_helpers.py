@@ -76,7 +76,7 @@ def rel_err(got, want):
 
 def kernel_counts():
     from hmsr_tpu_torch.ops import cuda_ica, cuda_merge, cuda_warp
-    return (cuda_ica.block_match.launches, cuda_ica.ica_step.launches,
+    return (cuda_ica.block_match.launches, cuda_ica.ica_steps.launches,
             cuda_ica.ica_fused.launches, cuda_warp.upscale_warp.launches,
             cuda_merge.merge_accumulate.launches,
             cuda_merge.merge_burst_accumulate.launches)
