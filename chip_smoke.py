@@ -16,24 +16,28 @@ and power limit:
    burst-fused merge) and the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
-   instantiation of a templated kernel), the launch layouts that the
-   library computes for K1 per (ts, r, metric), K2 and K3 per ts, K4 per
-   (Ts, u, c) and K5/K5' per (Ts, scale), and the static SASS instructions
-   of K1-K5' (``cuobjdump -sass`` of the library), in all and in each one's
-   longest loop (K5''s frame loop);
+   instantiation of a templated kernel: K5 and K5' have one per variant,
+   ``merge_kernel<G,ISO>`` with G = 2 Bayer, 1 grey and ISO = 1 for the
+   isotropic kernel), the launch layouts that the library computes for K1
+   per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c) and K5/K5' per
+   (Ts, scale, variant), and the static SASS instructions of every
+   instantiation of K1-K5' (``cuobjdump -sass`` of the library), in all
+   and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
    levels at Ts=16, 32 and 64 (K2 as all n_iter steps of a level and as
    its single step; K2 against K3 without its search, bit for bit), K4,
    K5 and K5' (5 frames) at Ts=16, 32 and
    64, K4 also at grey mode's one channel and no upscale, K5' also against
-   5 K5 launches (bit for bit); K1-K4 at shapes off the main paths,
+   5 K5 launches (bit for bit), and K5/K5' in their other three variants
+   (grey-steerable, Bayer-iso, grey-iso) at the same shapes, Ts=16, grey
+   mode's covariances on the raw grid; K1-K4 at shapes off the main paths,
    which reach their instantiations with run-time tile size, radius and
    upscale (K1: ts 8, 12, 16, 24 with r 1, 2, 4, 16; K2 and K3: ts 12 and
    24, and every fixed ts on a level with a flat (singular) tile; K4: 4 and
    2 channels, u=4, Ts=6 on a width that is no multiple of 4), untimed;
-   then K5 and K5' at
-   scales 1 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
+   then K5 and K5' in every variant at
+   scales 1, 2 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
    kernel's device time alone (:func:`hmsr_tpu_torch.measure.timed`: back
    to back behind a held stream, between CUDA events), the wrapper's host
    time per call apart, the plain version's time (events around its
@@ -41,7 +45,9 @@ and power limit:
 3. the 512x512 8-frame slice on the card against the slice on the CPU, in
    the scan and the chunked form (chunks of 3: the last one shorter): flow
    max|d| < 1e-2, image mean|d| < 1e-4 and max|d| < 1e-3 on the interior;
-   chunked equal to scan on the card;
+   chunked equal to scan on the card; then the same slice in grey mode,
+   with the isotropic kernel and both (card scan against CPU scan, card
+   chunked equal to card scan, launch counts asserted);
 4. the scan pipeline on a 20-frame 3000x4000 Bayer burst made on the card
    from a seed, x2, warm-up + 3 timed runs; kernel launch counts of every
    run asserted against what the path implies; finite interior;
@@ -55,13 +61,22 @@ and power limit:
 7. the probes, which are not on the path: P1 (per-block fixed cost: empty,
    staging and arithmetic bodies over 16k and 64k blocks) and P2 (row-block
    sum of the grey image and its pyramid level 2) against their plain
-   versions (:mod:`hmsr_tpu_torch.probe_cta_cost`).
+   versions (:mod:`hmsr_tpu_torch.probe_cta_cost`);
+8. the ``bench.py`` cells grey, x3 and x1 on the phase 4 burst, the
+   pipeline alone: grey (``mode: grey``) scan warm-up + 3 timed runs, then
+   chunked once (equal to scan) and ``process_arrays`` once with the device
+   finishing (6000x8000x3); x3 (scale 3, the accumulated-robustness
+   denoiser in the reference merge) and x1 (scale 1, robustness off)
+   warm-up + 3 timed runs; launch counts, image shapes, finite interiors
+   and peak memory of every run.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. The script imports neither
-JAX nor the JAX package ``hmsr_tpu``.
+The line before the last is a JSON object with one entry per kernel (K5
+and K5' with their four variants under ``variants``); the last line is
+``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
+JAX package ``hmsr_tpu``.
 """
 
+import copy
 import json
 import os
 import re
@@ -79,10 +94,9 @@ from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_siz
                                              init_alignment)
 from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
-from hmsr_tpu_torch.models.pipeline import make_pipeline
+from hmsr_tpu_torch.models.pipeline import make_pipeline, to_grey
 from hmsr_tpu_torch.models.process import process_arrays
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
-from hmsr_tpu_torch.ops.grey import compute_grey_image
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, CFA_RGGB, WB, affine_curves,
                                       burst_config, burst_snr, make_burst)
@@ -123,6 +137,9 @@ BRIGHT_LAUNCHES = {
 #: hold 19 robustness maps and covariance sets, ~1.6 GB)
 MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0}
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
+#: the variants of K5 and K5' (grey, iso), the main path's first
+MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
+                  "bayer-iso": (False, True), "grey-iso": (True, True)}
 #: the instantiation of K2 and K3 that the bright main path runs most
 ICA_KERNELS = {"K2": "ica_steps_kernel<16>", "K3": "ica_fused_kernel<16>"}
 CARD = ""               # nvidia-smi name and power limit, set in main()
@@ -179,12 +196,13 @@ def phase_build(raw_shape):
             f"shared memory, spill stores {r['spill_stores']} B, spill loads "
             f"{r['spill_loads']} B, stack {r['stack_bytes']} B")
     for key, F in (("K5", 1), ("K5'", CHUNK)):
-        lay = {(Ts, sc): cuda_merge.merge_layout(Ts, sc, F)
-               for Ts in (16, 32, 64) for sc in (1, 2, 3)}
-        log(f"  {key} ({F} frame{'s' if F > 1 else ''}) launch layout: dynamic shared "
-            "memory per block (HR rows per block) " + ", ".join(
-                f"Ts={Ts} x{sc} {g['smem_bytes']} B ({g['rows']})"
-                for (Ts, sc), g in lay.items()))
+        for variant, (grey, iso) in MERGE_VARIANTS.items():
+            lay = {(Ts, sc): cuda_merge.merge_layout(Ts, sc, F, grey, iso)
+                   for Ts in (16, 32, 64) for sc in (1, 2, 3)}
+            log(f"  {key} {variant} ({F} frame{'s' if F > 1 else ''}) launch layout: "
+                "dynamic shared memory per block (HR rows per block) " + ", ".join(
+                    f"Ts={Ts} x{sc} {g['smem_bytes']} B ({g['rows']})"
+                    for (Ts, sc), g in lay.items()))
     for snr in (40, 18, 8):                             # Ts 16, 32, 64
         config = burst_config(raw_shape, snr)
         state = init_alignment(torch.zeros(raw_shape, device="cuda"), config)
@@ -519,31 +537,49 @@ def check_runtime_instantiations(device, rng, h=600, w=808):
                                  f"mask differences")
 
 
-#: float operations of one frame at one HR pixel of K5/K5': 9 taps x (8 for
-#: the quadratic form, 1 exp, 2 for the weight, 2 to accumulate) and 25 for
-#: the covariance interpolation and the 2x2 inverse.
-MERGE_FLOPS = 9 * 13 + 25
+def merge_flops(iso):
+    """Float operations of one frame at one HR pixel of K5/K5': 9 taps x
+    (the exponent: 8 for the quadratic form, 4 for the isotropic
+    ``2 (dx^2 + dy^2)``; 1 exp, 2 for the weight, 2 to accumulate), and for
+    the steerable kernel 25 for the covariance interpolation and the 2x2
+    inverse."""
+    return 9 * ((4 if iso else 8) + 5) + (0 if iso else 25)
+
+
+def merge_instance(base, grey, iso):
+    """The kernel instantiation of a variant: ``merge_kernel<G,ISO>``."""
+    return f"{base}<{1 if grey else 2},{int(iso)}>"
 
 
 def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
-                        s=2):
+                        s=2, variant="bayer-steerable"):
     """K5 on one frame and K5' on a chunk of F frames against their plain
     versions (1e-5 relative), and K5' against F K5 launches (bit for bit),
-    at scale ``s``; entries count for the main path only at s=2."""
+    at scale ``s`` in one of :data:`MERGE_VARIANTS` (grey mode: covariances
+    on the raw grid, one accumulator plane); entries count for the main path
+    only at s=2 in the Bayer steerable variant."""
     H, W = raw_shape
-    main = 1 if s == 2 else 0
+    grey, iso = MERGE_VARIANTS[variant]
+    main = 1 if (s == 2 and variant == "bayer-steerable") else 0
+    n_ch = 1 if grey else 3
     config = burst_config(raw_shape, 40)
+    config.mode = "grey" if grey else "bayer"
     comp = torch.stack([torch.as_tensor(np.clip(
         blocky_scene(rng, H, W, 4) + 0.02 * rng.randn(H, W), 0, 1).astype(np.float32),
         device=device) for _ in range(F)])
     covs = torch.stack([estimate_kernels(c, config) for c in comp]).contiguous()
     flows = random_flow(rng, H, W, Ts, device, lead=(F,))
     r = torch.as_tensor(rng.rand(F, H, W).astype(np.float32), device=device)
-    base_n = torch.as_tensor(rng.rand(3, s * H, s * W).astype(np.float32), device=device)
-    base_d = torch.as_tensor(rng.rand(3, s * H, s * W).astype(np.float32), device=device)
+    base_n = torch.as_tensor(rng.rand(n_ch, s * H, s * W).astype(np.float32),
+                             device=device)
+    base_d = torch.as_tensor(rng.rand(n_ch, s * H, s * W).astype(np.float32),
+                             device=device)
     acc_bytes = 2 * nbytes(base_n, base_d)              # read and written once
-    frame_bytes = nbytes(comp[0], covs[0], flows[0], r[0])
+    # the isotropic kernel reads no covariance
+    frame_bytes = nbytes(comp[0], flows[0], r[0]) + (0 if iso else nbytes(covs[0]))
     px = base_n[0].numel()
+    tag = f"{variant} Ts={Ts} x{s}"
+    kw = dict(grey=grey, iso=iso)
 
     def rel_errs(n_a, d_a, n_b, d_b):
         abs_n, abs_d = nan_max_abs(n_a, n_b), nan_max_abs(d_a, d_b)
@@ -553,31 +589,30 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
     merge_args = (comp[0], flows[0], covs[0], r[0])
     n_k, d_k = base_n.clone(), base_d.clone()
     n_p, d_p = base_n.clone(), base_d.clone()
-    cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, s)
-    cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, s)
+    cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB, Ts, s, **kw)
+    cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB, Ts, s, **kw)
     err_n, err_d, err = rel_errs(n_k, d_k, n_p, d_p)
     tk = timed(lambda: cuda_merge.merge_accumulate(*merge_args, n_k, d_k, CFA_RGGB,
-                                                   Ts, s))
+                                                   Ts, s, **kw))
     ms_p = timed(lambda: cuda_merge.merge_plain(*merge_args, n_p, d_p, CFA_RGGB,
-                                                Ts, s), n=3, hold=False).ms \
+                                                Ts, s, **kw), n=3, hold=False).ms \
         if time_plain else float("nan")
-    bnd = bound(acc_bytes + frame_bytes, px * MERGE_FLOPS)
-    log(f"  K5 Ts={Ts} x{s} comp {(H, W)} -> num/den {(3, s * H, s * W)}: rel max|d| "
+    bnd = bound(acc_bytes + frame_bytes, px * merge_flops(iso))
+    log(f"  K5 {tag} comp {(H, W)} -> num/den {(n_ch, s * H, s * W)}: rel max|d| "
         f"num {err_n:.3e} den {err_d:.3e}, {time_text(tk)}, plain "
         f"{plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
     if not (err_n <= 1e-5 and err_d <= 1e-5):
-        raise AssertionError(f"K5 Ts={Ts} x{s}: relative errors {err_n:.3e} / "
-                             f"{err_d:.3e}")
-    record(stats, "K5", Ts, main, err, tk, ms_p, bnd)
+        raise AssertionError(f"K5 {tag}: relative errors {err_n:.3e} / {err_d:.3e}")
+    record(stats, "K5", Ts, main, err, tk, ms_p, bnd, variant=variant, s=s)
     del n_k, d_k, n_p, d_p
 
     burst_args = (comp, flows, covs, r)
     n_b, d_b = base_n.clone(), base_d.clone()
-    cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b, CFA_RGGB, Ts, s)
+    cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b, CFA_RGGB, Ts, s, **kw)
     n_s, d_s = base_n.clone(), base_d.clone()
     for f in range(F):
         cuda_merge.merge_accumulate(comp[f], flows[f], covs[f], r[f], n_s, d_s,
-                                    CFA_RGGB, Ts, s)
+                                    CFA_RGGB, Ts, s, **kw)
     d_seq = max(nan_max_abs(n_b, n_s), nan_max_abs(d_b, d_s))
     same = torch.equal(n_b, n_s) and torch.equal(d_b, d_s)
     del n_s, d_s
@@ -585,28 +620,29 @@ def check_merge_kernels(device, raw_shape, Ts, rng, stats, time_plain, F=CHUNK,
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    cuda_merge.merge_burst_plain(*burst_args, n_p, d_p, CFA_RGGB, Ts, s)
+    cuda_merge.merge_burst_plain(*burst_args, n_p, d_p, CFA_RGGB, Ts, s, **kw)
     t1.record()
     torch.cuda.synchronize()
     err_n, err_d, err = rel_errs(n_b, d_b, n_p, d_p)
     del n_p, d_p
     tk = timed(lambda: cuda_merge.merge_burst_accumulate(*burst_args, n_b, d_b,
-                                                         CFA_RGGB, Ts, s))
+                                                         CFA_RGGB, Ts, s, **kw))
     ms_seq = timed(lambda: [cuda_merge.merge_accumulate(
-        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, s)
+        comp[f], flows[f], covs[f], r[f], n_b, d_b, CFA_RGGB, Ts, s, **kw)
         for f in range(F)]).ms
     ms_p = t0.elapsed_time(t1) if time_plain else float("nan")
-    bnd = bound(acc_bytes + F * frame_bytes, F * px * MERGE_FLOPS)
-    log(f"  K5' Ts={Ts} x{s} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
+    bnd = bound(acc_bytes + F * frame_bytes, F * px * merge_flops(iso))
+    log(f"  K5' {tag} {F} frames: against {F} K5 launches max|d| {d_seq:.3e} "
         f"(bit-identical: {same}); against its plain version rel max|d| num "
         f"{err_n:.3e} den {err_d:.3e}; {time_text(tk)} per launch, {F} x K5 "
         f"{ms_seq:.4f} ms, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
         f"[{CARD}]")
     if not (same and err_n <= 1e-5 and err_d <= 1e-5):
-        raise AssertionError(f"K5' Ts={Ts} x{s}: against K5 max|d| {d_seq:.3e}, "
-                             f"relative errors {err_n:.3e} / {err_d:.3e}")
+        raise AssertionError(f"K5' {tag}: against K5 max|d| {d_seq:.3e}, relative "
+                             f"errors {err_n:.3e} / {err_d:.3e}")
     # per frame of the main path, as the other entries
-    record(stats, "K5'", Ts, main / F, err, tk, ms_p, bnd, seq_ms=ms_seq)
+    record(stats, "K5'", Ts, main / F, err, tk, ms_p, bnd, seq_ms=ms_seq,
+           variant=variant, s=s)
 
 
 def phase_kernels(device, raw_shape, seed=1):
@@ -620,13 +656,20 @@ def phase_kernels(device, raw_shape, seed=1):
     for Ts in (16, 32, 64):
         check_warp_kernel(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
         check_merge_kernels(device, raw_shape, Ts, rng, stats, Ts == MAIN_TS)
-    # grey mode's call: one channel, no upscale (off the main path)
+    # grey mode's call: one channel, no upscale (the grey cell, phase 8)
     check_warp_kernel(device, raw_shape, MAIN_TS, rng, stats, False, c=1, u=1)
+    # the other variants of K5 and K5' at the main path's shapes, timed
+    for variant in list(MERGE_VARIANTS)[1:]:
+        check_merge_kernels(device, raw_shape, MAIN_TS, rng, stats, True,
+                            variant=variant)
     check_runtime_instantiations(device, rng)
     check_gn_levels(device, rng)
-    for s in (1, 3):
-        for Ts in (16, 32, 64):
-            check_merge_kernels(device, (1024, 1024), Ts, rng, stats, False, s=s)
+    for variant in MERGE_VARIANTS:
+        for s in (1, 2, 3):
+            for Ts in (16, 32, 64):
+                if s != 2 or (variant != "bayer-steerable" and Ts != MAIN_TS):
+                    check_merge_kernels(device, (1024, 1024), Ts, rng, stats, False,
+                                        s=s, variant=variant)
     return stats
 
 
@@ -635,6 +678,9 @@ def phase_kernels(device, raw_shape, seed=1):
 # ---------------------------------------------------------------------------
 
 def phase_slice(device, size=512, n_frames=8, seed=2):
+    """Phase 3. Returns ``{variant: {"K5": launches of its card scan run,
+    "K5'": of its chunked run}}`` for the variants of K5/K5' other than the
+    main path's."""
     frames = make_burst(size, size, n_frames, seed, device)
     std, diff = affine_curves()
     config = burst_config((size, size), 40, debug=True)
@@ -648,22 +694,67 @@ def phase_slice(device, size=512, n_frames=8, seed=2):
                                                                  std, diff)
             outs[dev] = (img, dbg["flow"])
         (img_g, flow_g), (img_c, flow_c) = outs[device], outs["cpu"]
-        d_flow = float((flow_g.cpu() - flow_c).abs().max())
-        d_img = (img_g.cpu() - img_c).abs()[8:-8, 8:-8]
-        res[mode] = dict(flow_max=d_flow, img_mean=float(d_img.mean()),
-                         img_max=float(d_img.max()), img=img_g)
-        log(f"phase 3 slice {size}x{size} x{n_frames} Ts="
-            f"{config.block_matching.tuning.tile_size} {mode}, card vs CPU: flow "
-            f"max|d| {d_flow:.3e}, image mean|d| {res[mode]['img_mean']:.3e}, "
-            f"max|d| {res[mode]['img_max']:.3e}")
-        if not (d_flow < 1e-2 and res[mode]["img_mean"] < 1e-4
-                and res[mode]["img_max"] < 1e-3):
-            raise AssertionError(f"slice parity failed ({mode}): {res[mode]}")
+        res[mode] = slice_parity(img_g, flow_g, img_c, flow_c,
+                                 f"{size}x{size} x{n_frames} Ts="
+                                 f"{config.block_matching.tuning.tile_size} {mode}")
+        res[mode]["img"] = img_g
     d = float((res["chunked"]["img"] - res["scan"]["img"]).abs().max())
     log(f"phase 3 chunked vs scan on the card: image max|d| {d:.3e}")
     if d != 0.0:
         raise AssertionError(f"chunked and scan differ on the card: max|d| {d:.3e}")
+    launches = {}
+    for variant in list(MERGE_VARIANTS)[1:]:
+        launches[variant] = slice_variant(frames, config, variant, device)
+    return launches
+
+
+def slice_parity(img_g, flow_g, img_c, flow_c, what):
+    """The e2e bounds of the card's slice against the CPU's."""
+    d_flow = float((flow_g.cpu() - flow_c).abs().max())
+    d_img = (img_g.cpu() - img_c).abs()[8:-8, 8:-8]
+    res = dict(flow_max=d_flow, img_mean=float(d_img.mean()), img_max=float(d_img.max()))
+    log(f"phase 3 slice {what}, card vs CPU: flow max|d| {d_flow:.3e}, image mean|d| "
+        f"{res['img_mean']:.3e}, max|d| {res['img_max']:.3e}")
+    if not (d_flow < 1e-2 and res["img_mean"] < 1e-4 and res["img_max"] < 1e-3):
+        raise AssertionError(f"slice parity failed ({what}): {res}")
     return res
+
+
+def slice_variant(frames, config, variant, device):
+    """The slice in grey mode and/or with the isotropic kernel: the card's
+    scan against the CPU's scan (e2e bounds), the card's chunked form equal
+    to its scan, the launch counts of both asserted. Returns the K5
+    launches of the scan run and the K5' launches of the chunked run."""
+    grey, iso = MERGE_VARIANTS[variant]
+    std, diff = affine_curves()
+    config = copy.deepcopy(config)
+    config.mode = "grey" if grey else "bayer"
+    config.merging.kernel = "iso" if iso else "steerable"
+    imgs, launches = {}, {}
+    for mode, devs in (("scan", (device, "cpu")), ("chunked", (device,))):
+        config["tpu"] = {"pipeline": mode, "merge_chunk": 3}
+        for dev in devs:
+            burst = frames.to(dev)
+            reset_counts()
+            imgs[mode, dev] = make_pipeline(config, CFA_RGGB, WB, dev)(
+                burst[0], burst[1:], std, diff)
+            if dev == device:
+                launches[mode] = counts()
+                check_counts(launches[mode],
+                             expected_launches(frames[0], config, len(frames) - 1),
+                             f"phase 3 {variant} {mode}")
+    (img_g, dbg_g), (img_c, dbg_c) = imgs["scan", device], imgs["scan", "cpu"]
+    n_ch = 1 if grey else 3
+    if img_g.shape[-1] != n_ch:
+        raise AssertionError(f"slice {variant}: image {tuple(img_g.shape)}")
+    slice_parity(img_g, dbg_g["flow"], img_c, dbg_c["flow"], f"{variant} scan")
+    d = float((imgs["chunked", device][0] - img_g).abs().max())
+    log(f"phase 3 {variant} chunked vs scan on the card: image max|d| {d:.3e}; "
+        f"launches scan {launches['scan']}, chunked {launches['chunked']}")
+    if d != 0.0:
+        raise AssertionError(f"{variant}: chunked and scan differ on the card: max|d| "
+                             f"{d:.3e}")
+    return {"K5": launches["scan"]["K5"], "K5'": launches["chunked"]["K5'"]}
 
 
 # ---------------------------------------------------------------------------
@@ -674,9 +765,10 @@ def expected_launches(ref, config, n_cmp):
     """Launches per burst of each kernel that the path implies: per
     compared frame and level, K1 then K2 (all n_iter steps), or K3 on levels under
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
-    else after K1); one K4 per frame and two at init; one K5 per frame
+    else after K1); one K4 per frame and two at init (none with robustness
+    off); one K5 per frame
     (scan), or one K5' per chunk of ``tpu.merge_chunk`` frames (chunked)."""
-    state = init_alignment(compute_grey_image(ref, "FFT"), config)
+    state = init_alignment(to_grey(ref, config), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
         if tiles.shape[0] * tiles.shape[1] < FUSED_GN_MAX_TILES:
@@ -688,7 +780,8 @@ def expected_launches(ref, config, n_cmp):
     tpu = config.get("tpu", {})
     chunked = tpu.get("pipeline", "auto") == "chunked"
     fc = max(1, min(int(tpu.get("merge_chunk", 5)), n_cmp))
-    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": n_cmp + 2,
+    k4 = n_cmp + 2 if config.robustness.enabled else 0
+    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
             "K5": 0 if chunked else n_cmp, "K5'": -(-n_cmp // fc) if chunked else 0}
 
 
@@ -837,6 +930,162 @@ def phase_dark(device, h=3000, w=4000, n_frames=20, seed=0):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the bench.py cells grey, x3 and x1
+# ---------------------------------------------------------------------------
+
+#: peak device memory allowed per run of the phase 8 cells (GiB), set from
+#: their first measurement on an H100 80GB HBM3 with the margin of
+#: MAX_PEAK_GIB: grey scan 3.23 and process_arrays 3.05 (one accumulator
+#: plane); grey chunked 7.82 (the stacks hold 19 covariance sets on the raw
+#: grid, 2.7 GB, four times Bayer's); x3 7.70 (num, den and the image at
+#: 9000x12000, 1.3 GB each); x1 1.96
+CELL_PEAK_GIB = {"grey scan": 4.5, "grey chunked": 10.0, "grey process_arrays": 4.5,
+                 "x3 scan": 10.0, "x1 scan": 3.0}
+
+
+def bench_cells():
+    """``bench.py``'s mutations of its headline configuration for the cells
+    grey, x3 and x1 (``bench.py:312-322``)."""
+    def grey(c):
+        c.mode = "grey"
+
+    def x3(c):
+        c.scale = 3
+        c.accumulated_robustness_denoiser.enabled = True
+
+    def x1(c):
+        c.scale = 1
+        c.robustness.enabled = False
+        c.robustness.save_mask = False
+
+    return {"grey": grey, "x3": x3, "x1": x1}
+
+
+def check_peak(peak, what):
+    if peak > CELL_PEAK_GIB[what] * 2**30:
+        raise AssertionError(f"phase 8 {what}: peak memory {peak / 2**30:.3f} GiB > "
+                             f"{CELL_PEAK_GIB[what]} GiB")
+
+
+def run_cell(frames, config, what, device, n_runs=3):
+    """The pipeline alone on ``frames``: warm-up + ``n_runs`` timed runs,
+    launch counts of every run asserted, image shape and finite interior,
+    peak memory against :data:`CELL_PEAK_GIB`."""
+    h, w = frames.shape[1:]
+    std, diff = affine_curves()
+    pipe = make_pipeline(config, CFA_RGGB, WB, device)
+    std_t = torch.as_tensor(std, device=device)
+    diff_t = torch.as_tensor(diff, device=device)
+    ref, comps = frames[0], frames[1:]
+    torch.cuda.reset_peak_memory_stats()
+    image, _, times, launches, warm = run_timed(
+        lambda: pipe(ref, comps, std_t, diff_t), n_runs,
+        lambda: expected_launches(ref, config, len(comps)), f"phase 8 {what}", device)
+    peak = torch.cuda.max_memory_allocated()
+    s = int(config.scale)
+    check_image(image, (s * h, s * w, 1 if config.mode == "grey" else 3),
+                f"phase 8 {what}")
+    res = dict(image=image, min_s=min(times), median_s=statistics.median(times),
+               warm_s=warm, launches=launches, peak_bytes=peak)
+    log(f"phase 8 {what}: image {tuple(image.shape)}, warm-up {warm:.4f} s, min "
+        f"{res['min_s']:.4f} s, median {res['median_s']:.4f} s of {n_runs}; peak "
+        f"memory {peak / 2**30:.3f} GiB; launches per run {launches}; interior finite "
+        f"[{CARD}]")
+    check_peak(peak, what)
+    return res
+
+
+def phase_cells(frames, device):
+    """Phase 8: the ``bench.py`` cells grey, x3 and x1 on the phase 4 burst.
+    Grey: the scan pipeline timed, then the chunked pipeline once (equal to
+    scan bit for bit) and ``process_arrays`` scan once with the device
+    finishing (the one plane repeated to three). x3 (the accumulated-
+    robustness denoiser in the reference merge) and x1 (robustness off):
+    the scan pipeline timed. Returns ``{cell: result}``; the grey entry also
+    holds the chunked run's launches."""
+    h, w = frames.shape[1:]
+    std, _ = affine_curves()
+    snr = burst_snr(frames[0], std)
+    res = {}
+    for cell, mutate in bench_cells().items():
+        config = burst_config((h, w), snr)
+        mutate(config)
+        res[cell] = run_cell(frames, config, f"{cell} scan", device)
+        if cell != "grey":
+            res[cell].pop("image")
+            continue
+        # the chunked form once: K5' in place of K5, the same image
+        config["tpu"] = {"pipeline": "chunked", "merge_chunk": CHUNK}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        image, _ = make_pipeline(config, CFA_RGGB, WB, device)(
+            frames[0], frames[1:], torch.as_tensor(std, device=device),
+            torch.as_tensor(affine_curves()[1], device=device))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got, peak = counts(), torch.cuda.max_memory_allocated()
+        check_counts(got, expected_launches(frames[0], config, len(frames) - 1),
+                     "phase 8 grey chunked")
+        d = float((image - res[cell]["image"]).abs().max())
+        log(f"phase 8 grey chunked (once): {dt:.4f} s, image max|d| against scan "
+            f"{d:.3e}; peak memory {peak / 2**30:.3f} GiB; launches {got} [{CARD}]")
+        if d != 0.0:
+            raise AssertionError(f"phase 8 grey: chunked and scan differ (max|d| "
+                                 f"{d:.3e})")
+        check_peak(peak, "grey chunked")
+        res[cell].update(chunked_launches=got, chunked_peak_bytes=peak)
+        del image, res[cell]["image"]
+        # process_arrays with the device finishing, once
+        pc = process_config("scan")
+        pc.mode = "grey"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        image, _ = process_arrays(frames[0], frames[1:], pc, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got, peak = counts(), torch.cuda.max_memory_allocated()
+        check_counts(got, expected_launches(frames[0], pc, len(frames) - 1),
+                     "phase 8 grey process_arrays")
+        check_image(image, (2 * h, 2 * w, 3), "phase 8 grey process_arrays")
+        log(f"phase 8 grey process_arrays scan (once, device finishing): {dt:.4f} s, "
+            f"image {tuple(image.shape)}, Ts={pc.block_matching.tuning.tile_size}; "
+            f"peak memory {peak / 2**30:.3f} GiB; launches {got} [{CARD}]")
+        check_peak(peak, "grey process_arrays")
+        res[cell].update(process_s=dt, process_peak_bytes=peak)
+        del image
+    return res
+
+
+def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
+    """The K5 or K5' entry's ``variants``: per variant of
+    :data:`MERGE_VARIANTS`, its numbers per launch at the main path's shapes
+    (phase 2: 3000x4000, x2, Ts=16; K5' 5 frames), its instantiation's
+    registers, and its launches in the run that drives it: the main path
+    (bayer-steerable: phases 4 and 5), the grey cell (grey-steerable: phase
+    8), the 512^2 slice (the iso variants: phase 3)."""
+    out = {}
+    for variant, (grey, iso) in MERGE_VARIANTS.items():
+        row = next(e for e in rows if e["variant"] == variant and e["Ts"] == MAIN_TS
+                   and e["s"] == 2)
+        out[variant] = {
+            "ms": row["ms"], "host_us": row["host_us"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "max_abs_err": max(e["err"] for e in rows if e["variant"] == variant),
+            "registers": ptxas[merge_instance(MERGE_KERNELS[key], grey,
+                                              iso)]["registers"],
+            "launches": entry["launches"] if variant == "bayer-steerable"
+            else variant_launches[variant][key],
+            "launches_in": {"bayer-steerable": "main path",
+                            "grey-steerable": "grey cell (phase 8)"}.get(
+                                variant, "512^2 slice (phase 3)")}
+    return out
+
+
 def main():
     global CARD
     check_no_reference_imports()
@@ -854,19 +1103,25 @@ def main():
 
     log("phase 2 kernels against their plain versions (main-path shapes)")
     stats = phase_kernels(device, (3000, 4000))
-    phase_slice(device)
+    variant_launches = phase_slice(device)
     frames = make_burst(3000, 4000, 20, 0, device)
     phase_full(frames, device)
     launches = counts()
     proc = phase_process(frames, device)
     launches["K5'"] = proc["chunked"]["launches"]["K5'"]
-    del frames, proc
+    del proc
     phase_dark(device)
     log("phase 7 the probes P1 and P2 against their plain versions")
     p1, p1_ns = probe_cta_cost.run_p1(device, (16384, 65536), log=log, tag=CARD)
     p2 = probe_cta_cost.run_p2(device, log=log, tag=CARD)
+    log("phase 8 the bench.py cells grey, x3 and x1 on the phase 4 burst")
+    cells = phase_cells(frames, device)
+    del frames
+    variant_launches["grey-steerable"] = {
+        "K5": cells["grey"]["launches"]["K5"],
+        "K5'": cells["grey"]["chunked_launches"]["K5'"]}
     check_no_reference_imports()
-    log(f"phases 0-7 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-8 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
@@ -891,8 +1146,13 @@ def main():
             entry["k5_sequential_ms"] = per_frame("seq_ms")
         if key == "K2":
             entry["per_step_bound_ms"] = per_frame("step_bound_ms")
-        if key in MERGE_KERNELS or key in ICA_KERNELS:
-            entry["registers"] = ptxas[{**MERGE_KERNELS, **ICA_KERNELS}[key]]["registers"]
+        if key in ICA_KERNELS:
+            entry["registers"] = ptxas[ICA_KERNELS[key]]["registers"]
+        if key in MERGE_KERNELS:
+            entry["registers"] = ptxas[merge_instance(MERGE_KERNELS[key], False,
+                                                      False)]["registers"]
+            entry["variants"] = merge_variant_entries(key, stats[key], ptxas, entry,
+                                                      variant_launches)
         entries.append(entry)
     # the probes: not on the path (0 launches there); P1 at its largest grid
     for key, row in (("P1", p1["empty"][-1]), ("P2", p2[-1])):

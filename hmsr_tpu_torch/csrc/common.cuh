@@ -429,29 +429,35 @@ inline cudaError_t ica_smem_setup(Kernel kernel, int bytes) {
 // Merge accumulation (K5, and every frame of K5')
 // ---------------------------------------------------------------------------
 //
-// Semantics of hmsr_tpu/models/merge_tiled.py:merge_tiled (Bayer, steerable
-// kernel, integer scale s), for HR pixel (R, C) of a non-reference frame:
+// Semantics of hmsr_tpu/models/merge_tiled.py:merge_tiled (integer scale s),
+// for HR pixel (R, C) of a non-reference frame, in four variants: G = 2
+// (Bayer) or G = 1 (grey mode), times the steerable (ISO = 0) or the
+// isotropic (ISO = 1) kernel:
 //   - the flow is constant per (Ts*s)^2 HR tile; the 3x3 raw neighbourhood is
 //     centred at (Sy + 1) + (r_loc + ph_y) // s with Sy = floor_div(ty*B +
 //     floor(0.5 + s*fy), s) - 1; values come from the tile window at the
 //     CLIPPED origin Syc (zero outside the frame), and a clipped tile is
 //     invalid as a whole (ok_tile);
-//   - the covariance is bilinearly interpolated on the grey grid from the
-//     window at the clipped origin S2yc; index -1 holds the linear
-//     extrapolation 2 c[0] - c[1] (per axis, rows first), beyond it edge
-//     values;
-//   - the 2x2 inverse is unguarded; w = exp(-1/2 max(0, d^T Omega^-1 d)) * r;
-//   - the CFA channel comes from the floor parity of the sample's raw row
-//     and column.
+//   - steerable: the covariance is bilinearly interpolated at lr_mov/G - 0.5
+//     on the covariance grid (the grey grid of half the raw size for Bayer,
+//     the raw grid in grey mode) from the window at the clipped origin
+//     S2yc; index -1 holds the linear extrapolation 2 c[0] - c[1] (per axis,
+//     rows first), beyond it edge values; the 2x2 inverse is unguarded and
+//     z = max(0, d^T Omega^-1 d);
+//   - iso: z = max(0, 2 (dx^2 + dy^2)), no covariance is read;
+//   - w = exp(-z/2) * r;
+//   - Bayer: the CFA channel comes from the floor parity of the sample's raw
+//     row and column (three accumulator planes); grey: one plane.
 //
 // A merge block owns `rows` HR rows of one HR tile (all of it at Ts=16, x2).
 // merge_stage() writes one frame's share of the tile into a shared-memory
 // buffer: the tile-uniform values once, a table entry per HR row and per HR
 // column (what the pixel derives from its row or column alone), and the
-// raw, covariance and robustness windows, the covariance padding resolved.
-// merge_pixel() is then what truly varies per pixel. Every float is computed
-// with the operations, in the order, of merge_plain's per-pixel form, so
-// the staging changes no bit of the result.
+// raw, covariance (steerable only) and robustness windows, the covariance
+// padding resolved. merge_pixel() is then what truly varies per pixel.
+// Every float is computed with the operations, in the order, of
+// merge_plain's per-pixel form, so the staging changes no bit of the
+// result.
 
 constexpr int MERGE_THREADS = 256;
 // HR pixels per thread. On an H100, 1 was the slowest for both kernels
@@ -459,43 +465,54 @@ constexpr int MERGE_THREADS = 256;
 // 4 the fastest for K5'.
 constexpr int MERGE_PPT = 4;
 
+// Accumulator planes of a variant: three CFA channels (Bayer) or one.
+__host__ __device__ constexpr int merge_planes(int G) { return G == 2 ? 3 : 1; }
+
 // What a pixel takes from its HR row (or column) r_loc of the tile.
 struct __align__(16) MergeAxis {
   int q;          // 3x3 taps at raw window row (column) q + 1 + d, d = -1..1
   int q2;         // covariance cell at window row (column) q2, q2 + 1
+                  // (steerable only)
   int rob;        // index in the staged robustness window; -1 when the
                   // centre is outside the frame (rows: or the tile clipped)
-  int par;        // floor parity of the centre's raw row (column)
-  float frac;     // covariance bilinear fraction
+  int par;        // floor parity of the centre's raw row (column) (Bayer)
+  float frac;     // covariance bilinear fraction (steerable only)
   float dist[3];  // tap coordinate minus the moved centre, per d
   float in[3];    // 1 where tap d lies in the frame, else 0
   float pad_;
 };
 
 // Staged window sizes of a block of `rows` HR rows: the raw window is Ts+3
-// columns wide and the covariance windows Ts/2+2; their rows, and the
-// robustness rows, are those the block's HR rows reach.
+// columns wide and the covariance windows Ts/G+2 (none for ISO); their
+// rows, and the robustness rows, are those the block's HR rows reach.
 struct MergeWindows {
   int RW, RWr, CW, CWr, RR;
 };
 
+template <int G, int ISO>
 __host__ __device__ inline MergeWindows merge_windows(int Ts, int s,
                                                       int rows) {
   MergeWindows w;
   w.RW = Ts + 3;
   const int raw_rows = (rows - 1 + s - 1) / s + 3;
-  const int cov_rows = (rows - 1 + 2 * s - 1) / (2 * s) + 2;
-  w.CW = Ts / 2 + 2;
   w.RWr = raw_rows < w.RW ? raw_rows : w.RW;
-  w.CWr = cov_rows < w.CW ? cov_rows : w.CW;
+  w.CW = 0;
+  w.CWr = 0;
+  if (!ISO) {
+    const int sg = G * s;
+    const int cov_rows = (rows - 1 + sg - 1) / sg + 2;
+    w.CW = Ts / G + 2;
+    w.CWr = cov_rows < w.CW ? cov_rows : w.CW;
+  }
   w.RR = (rows - 1 + s - 1) / s + 1;
   return w;
 }
 
 // Floats of one staged frame: the row and column tables and the windows,
 // rounded up to 16 bytes.
+template <int G, int ISO>
 __host__ __device__ inline int merge_buffer_floats(int Ts, int s, int rows) {
-  const MergeWindows w = merge_windows(Ts, s, rows);
+  const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
   const int n = 12 * (rows + Ts * s) + w.RWr * w.RW + 3 * w.CWr * w.CW +
                 w.RR * Ts;
   return (n + 3) / 4 * 4;
@@ -509,13 +526,14 @@ struct MergeLayout {
   int rows, bands, buf_floats, smem_bytes;
 };
 
+template <int G, int ISO>
 inline MergeLayout merge_layout(int Ts, int s, int F) {
   const int B = Ts * s;
   const int fit = MERGE_THREADS * MERGE_PPT / B;
   MergeLayout L;
   L.rows = fit < 1 ? 1 : (fit > B ? B : fit);
   L.bands = (B + L.rows - 1) / L.rows;
-  L.buf_floats = merge_buffer_floats(Ts, s, L.rows);
+  L.buf_floats = merge_buffer_floats<G, ISO>(Ts, s, L.rows);
   L.smem_bytes = (F > 1 ? 2 : 1) * 4 * L.buf_floats;
   return L;
 }
@@ -524,14 +542,13 @@ inline MergeLayout merge_layout(int Ts, int s, int F) {
 // tile's flow, S/ph and S2/ph2 the raw and covariance window origins and
 // phases, qbase/q2base the first staged raw and covariance window rows
 // (columns: 0) and rbase the first staged robustness row (column).
+template <int G, int ISO>
 __device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
                                                 int n, float f, int S, int ph,
                                                 int S2, int ph2, int qbase,
                                                 int q2base, int rbase,
                                                 bool ok) {
-  const int g = 2;
   const int B = Ts * s;
-  const int sg = s * g;
   const float sf = (float)s;
   const int R = t * B + r_loc;
   MergeAxis a;
@@ -539,12 +556,16 @@ __device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
   const int center = S + 1 + q;
   const float lr = ((float)R + 0.5f) / sf;
   const float lr_mov = lr + f;
-  const int q2 = (r_loc + ph2) / sg;
-  a.frac = (lr_mov / (float)g - 0.5f) - (float)(S2 + 1 + q2);
   a.q = q - qbase;
-  a.q2 = q2 - q2base;
+  a.q2 = 0;
+  a.frac = 0.0f;
+  if (!ISO) {
+    const int q2 = (r_loc + ph2) / (s * G);
+    a.frac = (lr_mov / (float)G - 0.5f) - (float)(S2 + 1 + q2);
+    a.q2 = q2 - q2base;
+  }
   const float dist_ref = lr_mov - 0.5f;
-  a.par = floormod(center, 2);
+  a.par = G == 2 ? floormod(center, 2) : 0;
   for (int d = -1; d <= 1; ++d) {
     const int i_g = center + d;
     a.in[d + 1] = (i_g >= 0 && i_g < n) ? 1.0f : 0.0f;
@@ -580,6 +601,7 @@ __device__ __forceinline__ float cov_at(const float* __restrict__ cv, int gh,
 // the centre's raw row and column: m[2 pi + pj] has bit 9 ch + t set when
 // tap t = 3 (di + 1) + (dj + 1) falls in channel ch. Built on the host from
 // the 2x2 pattern cfa packed as cfa00 | cfa01 << 2 | cfa10 << 4 | cfa11 << 6.
+// Bayer only; grey mode passes it unread.
 struct MergeCfa {
   int m[4];
 };
@@ -605,19 +627,20 @@ __device__ __forceinline__ float2 merge_flow(const float* __restrict__ flow,
 }
 
 // Stages one frame's share of HR tile (ty, tx) at flow fl, HR rows r0 ..
-// r0+rows-1 of the tile, into buf (merge_buffer_floats(Ts, s, rows) floats).
-// All threads of the block take part. The tables are written directly; the
-// windows are copied with cp.async (zero-filled outside the frame), except
-// the covariance entries at index -1, which are extrapolated here (border
-// tiles only). merge_stage_wait() completes the copies for the block.
+// r0+rows-1 of the tile, into buf (merge_buffer_floats<G, ISO>(Ts, s, rows)
+// floats). All threads of the block take part. The tables are written
+// directly; the windows are copied with cp.async (zero-filled outside the
+// frame), except the covariance entries at index -1, which are extrapolated
+// here (border tiles only). merge_stage_wait() completes the copies for the
+// block.
+template <int G, int ISO>
 __device__ __forceinline__ void merge_stage(
     float* buf, const float* __restrict__ comp, int H, int W, float2 fl,
     const float* __restrict__ covs, int gh, int gw,
     const float* __restrict__ rob, int ty, int tx, int r0, int rows, int Ts,
     int s) {
-  const int g = 2;
   const int B = Ts * s;
-  const int sg = s * g;
+  const int sg = s * G;
   const float sf = (float)s;
   const float fx = fl.x;
   const float fy = fl.y;
@@ -634,25 +657,28 @@ __device__ __forceinline__ void merge_stage(
   const int Syc = clampi(Sy, -PAD, H + PAD - WIN);
   const int Sxc = clampi(Sx, -PAD, W + PAD - WIN);
   const bool ok_tile = (Syc == Sy) && (Sxc == Sx);
-  const int CWIN = Ts / g + 4;
-  const int CPAD = CWIN + 1;
-  const float halfsg = 0.5f * (float)sg;
-  const int base2_y =
-      ty * B + (int)floorf(__fsub_rn(__fadd_rn(0.5f, __fmul_rn(sf, fy)), halfsg));
-  const int S2y = floordiv(base2_y, sg) - 1;
-  const int ph2_y = base2_y - sg * (S2y + 1);
-  const int base2_x =
-      tx * B + (int)floorf(__fsub_rn(__fadd_rn(0.5f, __fmul_rn(sf, fx)), halfsg));
-  const int S2x = floordiv(base2_x, sg) - 1;
-  const int ph2_x = base2_x - sg * (S2x + 1);
-  const int S2yc = clampi(S2y, -CPAD, gh + CPAD - CWIN);
-  const int S2xc = clampi(S2x, -CPAD, gw + CPAD - CWIN);
+  int S2y = 0, ph2_y = 0, S2x = 0, ph2_x = 0, S2yc = 0, S2xc = 0;
+  if (!ISO) {
+    const int CWIN = Ts / G + 4;
+    const int CPAD = CWIN + 1;
+    const float halfsg = 0.5f * (float)sg;
+    const int base2_y = ty * B + (int)floorf(__fsub_rn(
+                                     __fadd_rn(0.5f, __fmul_rn(sf, fy)), halfsg));
+    S2y = floordiv(base2_y, sg) - 1;
+    ph2_y = base2_y - sg * (S2y + 1);
+    const int base2_x = tx * B + (int)floorf(__fsub_rn(
+                                     __fadd_rn(0.5f, __fmul_rn(sf, fx)), halfsg));
+    S2x = floordiv(base2_x, sg) - 1;
+    ph2_x = base2_x - sg * (S2x + 1);
+    S2yc = clampi(S2y, -CPAD, gh + CPAD - CWIN);
+    S2xc = clampi(S2x, -CPAD, gw + CPAD - CWIN);
+  }
   const int rbase_y = min(ty * Ts + r0 / s, H - 1);
   const int rbase_x = min(tx * Ts, W - 1);
 
-  const MergeWindows w = merge_windows(Ts, s, rows);
+  const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
   const int qbase = (r0 + ph_y) / s;
-  const int q2base = (r0 + ph2_y) / sg;
+  const int q2base = ISO ? 0 : (r0 + ph2_y) / sg;
   MergeAxis* rowt = reinterpret_cast<MergeAxis*>(buf);
   MergeAxis* colt = rowt + rows;
   float* raw = reinterpret_cast<float*>(colt + B);
@@ -661,16 +687,16 @@ __device__ __forceinline__ void merge_stage(
   const int nr = min(rows, B - r0);
   for (int i = threadIdx.x; i < nr + B; i += blockDim.x) {
     if (i < nr) {
-      rowt[i] = merge_axis(r0 + i, ty, Ts, s, H, fy, Sy, ph_y, S2y, ph2_y,
-                           qbase, q2base, rbase_y, ok_tile);
+      rowt[i] = merge_axis<G, ISO>(r0 + i, ty, Ts, s, H, fy, Sy, ph_y, S2y,
+                                   ph2_y, qbase, q2base, rbase_y, ok_tile);
     } else {
-      colt[i - nr] = merge_axis(i - nr, tx, Ts, s, W, fx, Sx, ph_x, S2x, ph2_x,
-                                0, 0, rbase_x, true);
+      colt[i - nr] = merge_axis<G, ISO>(i - nr, tx, Ts, s, W, fx, Sx, ph_x,
+                                        S2x, ph2_x, 0, 0, rbase_x, true);
     }
   }
   // the raw window at the clipped origin, from the band's first row; zero
   // outside the frame
-  const int RW = w.RW, CW = w.CW, CWr = w.CWr;
+  const int RW = w.RW;
   for (int p = threadIdx.x; p < w.RWr * RW; p += blockDim.x) {
     const int y = Syc + qbase + p / RW;
     const int x = Sxc + p % RW;
@@ -680,18 +706,21 @@ __device__ __forceinline__ void merge_stage(
   // covariance windows from row S2yc+1 (+ the band's first) and column
   // S2xc+1, padding resolved: cov_at is the edge-clamped entry, except at
   // index -1
-  for (int p = threadIdx.x; p < 3 * CWr * CW; p += blockDim.x) {
-    const int k = p / (CWr * CW);
-    const int e = p - k * CWr * CW;
-    const int i = S2yc + 1 + q2base + e / CW;
-    const int j = S2xc + 1 + e % CW;
-    const float* cv = covs + (size_t)k * gh * gw;
-    if (i == -1 || j == -1) {
-      cov[p] = cov_at(cv, gh, gw, i, j);
-    } else {
-      cp_async_f32(cov + p,
-                   cv + (size_t)clampi(i, 0, gh - 1) * gw + clampi(j, 0, gw - 1),
-                   4);
+  if (!ISO) {
+    const int CW = w.CW, CWr = w.CWr;
+    for (int p = threadIdx.x; p < 3 * CWr * CW; p += blockDim.x) {
+      const int k = p / (CWr * CW);
+      const int e = p - k * CWr * CW;
+      const int i = S2yc + 1 + q2base + e / CW;
+      const int j = S2xc + 1 + e % CW;
+      const float* cv = covs + (size_t)k * gh * gw;
+      if (i == -1 || j == -1) {
+        cov[p] = cov_at(cv, gh, gw, i, j);
+      } else {
+        cp_async_f32(cov + p,
+                     cv + (size_t)clampi(i, 0, gh - 1) * gw + clampi(j, 0, gw - 1),
+                     4);
+      }
     }
   }
   for (int p = threadIdx.x; p < w.RR * Ts; p += blockDim.x) {
@@ -707,18 +736,20 @@ __device__ __forceinline__ void merge_stage_wait() {
   __syncthreads();
 }
 
-// One Bayer frame's contribution at row r (of the staged rows) and column c
-// of the tile: the kernel-weighted sum of its 3x3 raw taps per CFA channel
-// (vals) and the sum of the weights (accs), in the tap order of merge_plain.
-// K5 adds the result to num/den once per launch, K5' once per frame of its
-// chunk: both call merge_stage and this function, so F K5 launches equal
-// one K5' launch bit for bit.
+// One frame's contribution at row r (of the staged rows) and column c of
+// the tile: the kernel-weighted sum of its 3x3 raw taps per accumulator
+// plane (vals, merge_planes(G) of them) and the sum of the weights (accs),
+// in the tap order of merge_plain. K5 adds the result to num/den once per
+// launch, K5' once per frame of its chunk: both call merge_stage and this
+// function, so F K5 launches equal one K5' launch bit for bit.
+template <int G, int ISO>
 __device__ __forceinline__ void merge_pixel(const float* buf, int rows, int Ts,
                                             int s, int r, int c,
                                             const MergeCfa& cfa, float* vals,
                                             float* accs) {
+  constexpr int NCH = merge_planes(G);
   const int B = Ts * s;
-  const MergeWindows w = merge_windows(Ts, s, rows);
+  const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
   const int RW = w.RW, CW = w.CW;
   const MergeAxis* rowt = reinterpret_cast<const MergeAxis*>(buf);
   const MergeAxis* colt = rowt + rows;
@@ -728,34 +759,40 @@ __device__ __forceinline__ void merge_pixel(const float* buf, int rows, int Ts,
   const MergeAxis ay = rowt[r];
   const MergeAxis ax = colt[c];
 
-  // ---- covariance interpolation and inverse
-  const float* cw = cov + ay.q2 * CW + ax.q2;
-  float cc[3];
-  for (int k = 0; k < 3; ++k) {
-    const float* ck = cw + k * w.CWr * CW;
-    const float c00 = ck[0];
-    const float c01 = ck[1];
-    const float c10 = ck[CW];
-    const float c11 = ck[CW + 1];
-    const float top = c00 + ax.frac * (c01 - c00);
-    const float bot = c10 + ax.frac * (c11 - c10);
-    cc[k] = top + ay.frac * (bot - top);
+  // ---- steerable: covariance interpolation and inverse
+  float ixx = 0.0f, ixy = 0.0f, iyy = 0.0f;
+  if (!ISO) {
+    const float* cw = cov + ay.q2 * CW + ax.q2;
+    float cc[3];
+    for (int k = 0; k < 3; ++k) {
+      const float* ck = cw + k * w.CWr * CW;
+      const float c00 = ck[0];
+      const float c01 = ck[1];
+      const float c10 = ck[CW];
+      const float c11 = ck[CW + 1];
+      const float top = c00 + ax.frac * (c01 - c00);
+      const float bot = c10 + ax.frac * (c11 - c10);
+      cc[k] = top + ay.frac * (bot - top);
+    }
+    const float det = cc[0] * cc[2] - cc[1] * cc[1];
+    const float inv_det = 1.0f / det;
+    ixx = inv_det * cc[2];
+    ixy = -inv_det * cc[1];
+    iyy = inv_det * cc[0];
   }
-  const float det = cc[0] * cc[2] - cc[1] * cc[1];
-  const float inv_det = 1.0f / det;
-  const float ixx = inv_det * cc[2];
-  const float ixy = -inv_det * cc[1];
-  const float iyy = inv_det * cc[0];
 
   // ---- 3x3 accumulation. The weight's in-frame factor is the product of
-  // the row's and the column's 0/1 (exactly (inb ? 1 : 0)). Each tap is
-  // added to its CFA channel only, as a predicated add (no branch).
+  // the row's and the column's 0/1 (exactly (inb ? 1 : 0)). Bayer adds each
+  // tap to its CFA channel only, as a predicated add (no branch).
   const float wr = (ay.rob >= 0 && ax.rob >= 0) ? rb[ay.rob * Ts + ax.rob]
                                                 : 0.0f;
-  const int pq = 2 * ay.par + ax.par;
-  const int m = pq == 0 ? cfa.m[0]
-                        : (pq == 1 ? cfa.m[1] : (pq == 2 ? cfa.m[2] : cfa.m[3]));
-  for (int k = 0; k < 3; ++k) {
+  int m = 0;
+  if (G == 2) {
+    const int pq = 2 * ay.par + ax.par;
+    m = pq == 0 ? cfa.m[0]
+                : (pq == 1 ? cfa.m[1] : (pq == 2 ? cfa.m[2] : cfa.m[3]));
+  }
+  for (int k = 0; k < NCH; ++k) {
     vals[k] = 0.0f;
     accs[k] = 0.0f;
   }
@@ -766,17 +803,27 @@ __device__ __forceinline__ void merge_pixel(const float* buf, int rows, int Ts,
       const int t = 3 * (di + 1) + (dj + 1);
       const float dist_x = ax.dist[dj + 1];
       const float cval = rr[dj];
-      float z = ixx * dist_x * dist_x + 2.0f * ixy * dist_x * dist_y +
-                iyy * dist_y * dist_y;
+      float z;
+      if (ISO) {
+        z = 2.0f * (dist_x * dist_x + dist_y * dist_y);
+      } else {
+        z = ixx * dist_x * dist_x + 2.0f * ixy * dist_x * dist_y +
+            iyy * dist_y * dist_y;
+      }
       z = fmaxf(z, 0.0f);
       const float wgt =
           expf(-0.5f * z) * wr * (ay.in[di + 1] * ax.in[dj + 1]);
       const float wc = wgt * cval;
-      for (int k = 0; k < 3; ++k) {
-        if ((m >> (9 * k + t)) & 1) {
-          vals[k] += wc;
-          accs[k] += wgt;
+      if (G == 2) {
+        for (int k = 0; k < NCH; ++k) {
+          if ((m >> (9 * k + t)) & 1) {
+            vals[k] += wc;
+            accs[k] += wgt;
+          }
         }
+      } else {
+        vals[0] += wc;
+        accs[0] += wgt;
       }
     }
   }
@@ -803,15 +850,25 @@ __device__ __forceinline__ void merge_thread_pixel(int k, int B, int nr, int R0,
 // of (Ts, s, F) and raises the dynamic shared-memory limit of `kernel` when
 // its bytes exceed the 48 KB default, which the card refuses beyond its own
 // limit. Returns a cudaError_t.
-template <typename Kernel>
+template <int G, int ISO, typename Kernel>
 inline cudaError_t merge_launch_setup(Kernel kernel, int Ts, int s, int F,
                                       MergeLayout& L) {
   if (Ts < 2 || Ts % 2 != 0 || s < 1) return cudaErrorInvalidValue;
-  L = merge_layout(Ts, s, F);
+  L = merge_layout<G, ISO>(Ts, s, F);
   if (L.smem_bytes > 48 * 1024) {
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 L.smem_bytes);
   }
   return cudaSuccess;
+}
+
+// The variant of the C entry points' (grey, iso) flags: calls
+// fn.template run<G, ISO>() for G = grey ? 1 : 2 and ISO = iso ? 1 : 0.
+template <typename Fn>
+inline int merge_dispatch(int grey, int iso, Fn& fn) {
+  if (grey) {
+    return iso ? fn.template run<1, 1>() : fn.template run<1, 0>();
+  }
+  return iso ? fn.template run<2, 1>() : fn.template run<2, 0>();
 }

@@ -1,9 +1,11 @@
 // K5: merge accumulation of one non-reference frame (Alg. 4) into (num, den).
 //
 // Replaces hmsr_tpu/ops/pallas_merge.py:_merge_group_kernel (launched by
-// _merge_frames_pallas through merge_pallas). The staging and the per-pixel
-// arithmetic are merge_stage and merge_pixel in common.cuh, shared with K5'
-// (merge_burst.cu).
+// _merge_frames_pallas through merge_pallas), in all four of its variants:
+// Bayer or grey mode, times the steerable or the isotropic kernel, each an
+// instantiation merge_kernel<G, ISO> (G = 2 Bayer, 1 grey). The staging and
+// the per-pixel arithmetic are merge_stage and merge_pixel in common.cuh,
+// shared with K5' (merge_burst.cu).
 //
 // Bound on the H100: bytes, per HR pixel a read-modify-write of 6
 // accumulator floats (48 bytes): 0.73 ms at 3000x4000 x2. The work that
@@ -14,7 +16,10 @@
 // pixel form also re-derived, per pixel, the tile's flow, window origins,
 // clipped origins and phases (a dozen integer divisions by run-time
 // values), its row's and column's coordinates (two IEEE divisions) and 12
-// edge-clamped covariance gathers: 2.8 ms.
+// edge-clamped covariance gathers: 2.8 ms. Grey mode reads and writes a
+// third of the accumulator bytes (one plane) but keeps the per-pixel
+// covariance work, so it stays nearer the instruction floor; the isotropic
+// kernel drops the covariance window, interpolation and inverse.
 //
 // Design: one block of MERGE_THREADS threads per HR tile, or per band of
 // `rows` HR rows of one (MERGE_PPT pixels per thread; merge_layout in
@@ -30,6 +35,7 @@
 // traffic is coalesced.
 #include "common.cuh"
 
+template <int G, int ISO>
 __global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const float* __restrict__ comp, int H, int W,
                  const float* __restrict__ flow, int fnx,
@@ -37,6 +43,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
                  const float* __restrict__ rob, float* __restrict__ num,
                  float* __restrict__ den, int out_h, int out_w, int Ts, int s,
                  MergeCfa cfa, int rows, int bands) {
+  constexpr int NCH = merge_planes(G);
   extern __shared__ __align__(16) float smem[];
   const int B = Ts * s;
   const int tx = blockIdx.x;
@@ -48,25 +55,25 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   // the staging
   int pr[MERGE_PPT], pc[MERGE_PPT];
   size_t po[MERGE_PPT];
-  float n[MERGE_PPT][3], d[MERGE_PPT][3];
+  float n[MERGE_PPT][NCH], d[MERGE_PPT][NCH];
 #pragma unroll
   for (int k = 0; k < MERGE_PPT; ++k) {
     merge_thread_pixel(k, B, nr, ty * B + r0, tx * B, out_h, out_w, pr[k],
                        pc[k], po[k]);
-    for (int ch = 0; ch < 3; ++ch) {
+    for (int ch = 0; ch < NCH; ++ch) {
       n[k][ch] = pr[k] >= 0 ? num[ch * plane + po[k]] : 0.0f;
       d[k][ch] = pr[k] >= 0 ? den[ch * plane + po[k]] : 0.0f;
     }
   }
-  merge_stage(smem, comp, H, W, merge_flow(flow, fnx, ty, tx), covs, gh, gw,
-              rob, ty, tx, r0, rows, Ts, s);
+  merge_stage<G, ISO>(smem, comp, H, W, merge_flow(flow, fnx, ty, tx), covs, gh,
+                      gw, rob, ty, tx, r0, rows, Ts, s);
   merge_stage_wait();
 #pragma unroll
   for (int k = 0; k < MERGE_PPT; ++k) {
     if (pr[k] >= 0) {
-      float vals[3], accs[3];
-      merge_pixel(smem, rows, Ts, s, pr[k], pc[k], cfa, vals, accs);
-      for (int ch = 0; ch < 3; ++ch) {
+      float vals[NCH], accs[NCH];
+      merge_pixel<G, ISO>(smem, rows, Ts, s, pr[k], pc[k], cfa, vals, accs);
+      for (int ch = 0; ch < NCH; ++ch) {
         num[ch * plane + po[k]] = n[k][ch] + vals[ch];
         den[ch * plane + po[k]] = d[k][ch] + accs[ch];
       }
@@ -74,31 +81,71 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   }
 }
 
-// cfa: the 2x2 pattern packed as in merge_cfa_masks.
+// The launch of hmsr_merge, one instantiation per variant.
+struct MergeLaunch {
+  const float* comp;
+  int H, W;
+  const float* flow;
+  int fnx;
+  const float* covs;
+  int gh, gw;
+  const float* rob;
+  float* num;
+  float* den;
+  int out_h, out_w, Ts, s, cfa;
+  cudaStream_t stream;
+
+  template <int G, int ISO>
+  int run() {
+    MergeLayout L;
+    const cudaError_t e =
+        merge_launch_setup<G, ISO>(merge_kernel<G, ISO>, Ts, s, 1, L);
+    if (e != cudaSuccess) return (int)e;
+    const int B = Ts * s;
+    const dim3 grid((out_w + B - 1) / B, (out_h + B - 1) / B * L.bands);
+    merge_kernel<G, ISO><<<grid, MERGE_THREADS, L.smem_bytes, stream>>>(
+        comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, Ts,
+        s, merge_cfa_masks(cfa), L.rows, L.bands);
+    return (int)cudaGetLastError();
+  }
+};
+
+// cfa: the 2x2 pattern packed as in merge_cfa_masks (read in Bayer mode
+// only); grey: one accumulator plane and covariances on the raw grid; iso:
+// the isotropic kernel (covs unread).
 extern "C" int hmsr_merge(const float* comp, int H, int W, const float* flow,
                           int fnx, const float* covs, int gh, int gw,
                           const float* rob, float* num, float* den, int out_h,
-                          int out_w, int Ts, int s, int cfa, void* stream) {
+                          int out_w, int Ts, int s, int cfa, int grey, int iso,
+                          void* stream) {
   if (out_h <= 0 || out_w <= 0) return (int)cudaGetLastError();
-  MergeLayout L;
-  const cudaError_t e = merge_launch_setup(merge_kernel, Ts, s, 1, L);
-  if (e != cudaSuccess) return (int)e;
-  const int B = Ts * s;
-  const dim3 grid((out_w + B - 1) / B, (out_h + B - 1) / B * L.bands);
-  merge_kernel<<<grid, MERGE_THREADS, L.smem_bytes, (cudaStream_t)stream>>>(
-      comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, Ts, s,
-      merge_cfa_masks(cfa), L.rows, L.bands);
-  return (int)cudaGetLastError();
+  MergeLaunch launch{comp, H,     W,     flow, fnx, covs, gh,  gw,
+                     rob,  num,   den,   out_h, out_w, Ts,  s,   cfa,
+                     (cudaStream_t)stream};
+  return merge_dispatch(grey, iso, launch);
 }
 
-// The layout hmsr_merge (F = 1) and hmsr_merge_burst use for (Ts, s, F):
-// out = {HR rows per block, blocks per HR tile, dynamic shared memory bytes
-// per block}.
-extern "C" int hmsr_merge_layout(int Ts, int s, int F, int* out) {
+// The layout of one variant.
+struct MergeLayoutQuery {
+  int Ts, s, F;
+  int* out;
+
+  template <int G, int ISO>
+  int run() {
+    const MergeLayout L = merge_layout<G, ISO>(Ts, s, F);
+    out[0] = L.rows;
+    out[1] = L.bands;
+    out[2] = L.smem_bytes;
+    return 0;
+  }
+};
+
+// The layout hmsr_merge (F = 1) and hmsr_merge_burst use for (Ts, s, F) and
+// the variant (grey, iso): out = {HR rows per block, blocks per HR tile,
+// dynamic shared memory bytes per block}.
+extern "C" int hmsr_merge_layout(int Ts, int s, int F, int grey, int iso,
+                                 int* out) {
   if (Ts < 2 || Ts % 2 != 0 || s < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  const MergeLayout L = merge_layout(Ts, s, F);
-  out[0] = L.rows;
-  out[1] = L.bands;
-  out[2] = L.smem_bytes;
-  return 0;
+  MergeLayoutQuery query{Ts, s, F, out};
+  return merge_dispatch(grey, iso, query);
 }

@@ -5,38 +5,47 @@
 - :func:`merge_ref_tiled` accumulates the reference frame (Alg. 11) with
   torch ops: the JAX package runs it as XLA, not Pallas. It is written in the
   direct gather form of :func:`hmsr_tpu.models.merge.merge_ref` and
-  evaluated in bands of HR rows so that no full-size 3x3 temporaries exist.
+  evaluated in bands of HR rows so that no full-size tap temporaries exist.
+
+Both take every variant of the JAX package's integer-scale merge: Bayer or
+grey mode (``mode``), the steerable or the isotropic kernel
+(``merging.kernel``), and for the reference frame the accumulated-robustness
+denoiser (``acc_rob``).
 """
 
 import numpy as np
 import torch
 
-from ..ops.cuda_merge import accumulate_tap, merge_accumulate, scale_divisor, tap_weight
+from ..ops.cuda_merge import accumulate_tap, merge_accumulate, quad_form, scale_divisor
 from ..utils.types import DEFAULT_FLOAT, EPSILON_DIV
 
 
 def check_merge_config(config):
-    """The merge geometry the port supports: Bayer mode, the steerable
-    kernel, an integer scale (returned). Raises ``NotImplementedError``
-    otherwise."""
+    """The merge geometry the port supports: an integer scale (returned).
+    Raises ``NotImplementedError`` otherwise."""
     s = int(config.scale)
     if s != config.scale or s < 1:
         raise NotImplementedError(f"non-integer scale {config.scale} is not ported")
-    if config.mode != "bayer":
-        raise NotImplementedError(f"mode={config.mode!r} is not ported")
-    if config.merging.kernel != "steerable":
-        raise NotImplementedError(
-            f"merging.kernel={config.merging.kernel!r} is not ported")
     return s
+
+
+def merge_variant(config):
+    """``(grey, iso)``: grey mode (one accumulator plane, covariances on the
+    raw grid, no CFA pick) and the isotropic kernel, as the JAX package
+    reads them (anything but ``bayer`` is grey, anything but ``iso`` is
+    steerable)."""
+    return config.mode != "bayer", config.merging.kernel == "iso"
 
 
 def merge_tiled(comp_img, flow, covs, r, num, den, cfa_pattern, config):
     """Accumulate a non-reference frame into (num, den) in place; returns
     the pair."""
     s = check_merge_config(config)
+    grey, iso = merge_variant(config)
     return merge_accumulate(comp_img.contiguous(), flow.to(DEFAULT_FLOAT).contiguous(),
                             covs.contiguous(), r.contiguous(), num, den,
-                            cfa_pattern, int(config.block_matching.tuning.tile_size), s)
+                            cfa_pattern, int(config.block_matching.tuning.tile_size), s,
+                            grey, iso)
 
 
 def _interp_cov(covs, kmap_i, kmap_j):
@@ -59,14 +68,40 @@ def _interp_cov(covs, kmap_i, kmap_j):
     return out
 
 
+def _inverse(cc):
+    """The guarded 2x2 inverse (ixx, ixy, iyy) of merge_ref: identity where
+    |det| <= EPSILON_DIV."""
+    cxx, cxy, cyy = cc
+    det = cxx * cyy - cxy * cxy
+    ok = torch.abs(det) > EPSILON_DIV
+    one = torch.ones_like(det)
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, one), one)
+    return (torch.where(ok, inv_det * cyy, one),
+            torch.where(ok, -inv_det * cxy, torch.zeros_like(det)),
+            torch.where(ok, inv_det * cxx, one))
+
+
 def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
                     band_rows=512):
     """Accumulate the reference frame into (num, den) in place; returns the
-    pair. The accumulated-robustness denoiser branch is not ported."""
-    if acc_rob is not None:
-        raise NotImplementedError("the accumulated-robustness merge is not ported")
+    pair.
+
+    Bayer mode interpolates the covariance at ``(R/s - 0.5) / 2`` on the grey
+    grid, grey mode at ``R/s`` on the raw grid (the JAX package's two kmaps,
+    kept as they are). With ``accumulated_robustness_denoiser.enabled`` and
+    ``acc_rob`` (H, W), the taps widen to ``merge.rad_max``: where the
+    nearest-resampled ``acc_rob`` is at most ``merge.max_frame_count`` the
+    pixel takes them all and divides ``z`` by ``merge.max_multiplier`` (else
+    3x3 taps, ``z`` as it is), and where it is below the count the
+    reference's sums replace num/den instead of adding to them.
+    """
     s = check_merge_config(config)
-    cfa = np.asarray(cfa_pattern, dtype=np.int64)
+    grey, iso = merge_variant(config)
+    cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
+    ard = config.accumulated_robustness_denoiser
+    denoise = bool(ard.get("enabled", False)) and acc_rob is not None
+    rad_max = int(ard.merge.rad_max) if denoise else 1
+    taps = range(-rad_max, rad_max + 1)
     H, W = ref_img.shape
     n_ch, out_h, out_w = num.shape
     dev = ref_img.device
@@ -74,33 +109,43 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     s_dev = scale_divisor(s, dev)
     pos_x = torch.arange(out_w, dtype=DEFAULT_FLOAT, device=dev)[None, :] / s_dev
     center_x = torch.round(pos_x).long()
-    grey_x = (pos_x - 0.5) / 2.0
+    kmap_x = pos_x if grey else (pos_x - 0.5) / 2.0
     for y0 in range(0, out_h, band_rows):
         y1 = min(y0 + band_rows, out_h)
         pos_y = torch.arange(y0, y1, dtype=DEFAULT_FLOAT, device=dev)[:, None] / s_dev
         center_y = torch.round(pos_y).long()
-        cxx, cxy, cyy = _interp_cov(covs, (pos_y - 0.5) / 2.0, grey_x)
-        det = cxx * cyy - cxy * cxy
-        ok = torch.abs(det) > EPSILON_DIV
-        one = torch.ones_like(det)
-        inv_det = torch.where(ok, 1.0 / torch.where(ok, det, one), one)
-        ixx = torch.where(ok, inv_det * cyy, one)
-        ixy = torch.where(ok, -inv_det * cxy, torch.zeros_like(det))
-        iyy = torch.where(ok, inv_det * cxx, one)
+        inv = None
+        if not iso:
+            kmap_y = pos_y if grey else (pos_y - 0.5) / 2.0
+            inv = _inverse(_interp_cov(covs, kmap_y, kmap_x))
+        if denoise:
+            local_acc_r = acc_rob[center_y.clamp(0, H - 1), center_x.clamp(0, W - 1)]
+            few = local_acc_r <= float(ard.merge.max_frame_count)
+            power = torch.where(few, float(ard.merge.max_multiplier), 1.0)
+            rad = torch.where(few, rad_max, 1)
 
         vals = [0.0] * n_ch
         accs = [0.0] * n_ch
-        for di in (-1, 0, 1):
+        for di in taps:
             i = center_y + di
             inb_i = (i >= 0) & (i < H)
             dist_y = i.to(DEFAULT_FLOAT) - pos_y
-            for dj in (-1, 0, 1):
+            for dj in taps:
                 j = center_x + dj
                 inb = inb_i & (j >= 0) & (j < W)
+                z = quad_form(inv, j.to(DEFAULT_FLOAT) - pos_x, dist_y)
+                if denoise:
+                    inb = inb & (abs(di) <= rad) & (abs(dj) <= rad)
+                    z = z / power
                 c = ref_img[i.clamp(0, H - 1), j.clamp(0, W - 1)]
-                dist_x = j.to(DEFAULT_FLOAT) - pos_x
-                w = tap_weight(ixx, ixy, iyy, dist_x, dist_y) * inb
+                w = torch.exp(-0.5 * z) * inb
                 accumulate_tap(vals, accs, w, c, i, j, cfa)
-        num[:, y0:y1] += torch.stack(vals, 0)
-        den[:, y0:y1] += torch.stack(accs, 0)
+        val, acc = torch.stack(vals, 0), torch.stack(accs, 0)
+        if denoise:
+            overwrite = local_acc_r < float(ard.merge.max_frame_count)
+            num[:, y0:y1] = torch.where(overwrite, val, num[:, y0:y1] + val)
+            den[:, y0:y1] = torch.where(overwrite, acc, den[:, y0:y1] + acc)
+        else:
+            num[:, y0:y1] += val
+            den[:, y0:y1] += acc
     return num, den

@@ -3,7 +3,9 @@
 
 Reference init once (grey, pyramid, tiles, gradients, Hessians, robustness
 reference stats), then the compared frames, then the reference-frame merge
-and the border-strip refill + divide.
+(with the accumulated-robustness denoiser when it is enabled) and the
+border-strip refill + divide. In grey mode (``mode: grey``) a frame is its
+own grey image and the accumulators have one plane.
 
 - ``scan`` (``tpu.pipeline`` "auto" or "scan"): a Python loop over the
   frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
@@ -27,7 +29,7 @@ from ..ops.grey import compute_grey_image
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
-from .merge_tiled import check_merge_config, merge_ref_tiled, merge_tiled
+from .merge_tiled import check_merge_config, merge_ref_tiled, merge_tiled, merge_variant
 from .robustness import compute_robustness, init_robustness
 
 PIPELINES = ("auto", "scan", "chunked")
@@ -40,13 +42,18 @@ def check_supported(config):
         raise NotImplementedError(
             f"grey_method={config.grey_method!r} is not ported (needs "
             f"flow_to_raw_grid)")
-    if config.accumulated_robustness_denoiser.get("enabled", False):
-        raise NotImplementedError(
-            "accumulated_robustness_denoiser is not ported")
     mode = config.get("tpu", {}).get("pipeline", "auto")
     if mode not in PIPELINES:
         raise NotImplementedError(f"tpu.pipeline={mode!r}: only the scan and "
                                   f"chunked pipelines are ported")
+
+
+def to_grey(frame, config):
+    """The image a frame is aligned on: its grey image in Bayer mode, the
+    frame itself in grey mode (the JAX package's ``to_grey``)."""
+    if config.mode != "bayer":
+        return frame
+    return compute_grey_image(frame, str(config.get("grey_method", "FFT")))
 
 
 def _as_tensor(x, device):
@@ -61,48 +68,50 @@ def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
     chunk is shorter (the JAX package pads it with zero-robustness frames,
     which add exact zeros). Returns the pair."""
     s = check_merge_config(config)
+    grey, iso = merge_variant(config)
     ts = int(config.block_matching.tuning.tile_size)
     f0 = comp_imgs.shape[0]
     fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), f0))
     for c0 in range(0, f0, fc):
         c1 = min(c0 + fc, f0)
         merge_burst_accumulate(comp_imgs[c0:c1], flows[c0:c1], covs_stack[c0:c1],
-                               rmaps[c0:c1], num, den, cfa_pattern, ts, s)
+                               rmaps[c0:c1], num, den, cfa_pattern, ts, s, grey, iso)
     return num, den
 
 
 def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
                  cfa_pattern, white_balance, device="cuda"):
-    """Returns ``(image (H*s, W*s, 3), debug)``. With ``config.debug`` the
-    debug dict holds per-frame ``flow`` (n, ny, nx, 2) and ``robustness``
-    (n, H, W) stacks; with ``robustness.save_mask`` (or the
-    accumulated-robustness denoiser) ``accumulated_robustness`` (H, W), the
-    sum of the frames' robustness maps."""
+    """Returns ``(image (H*s, W*s, c), debug)``, c = 3 in Bayer mode and 1
+    in grey mode. With ``config.debug`` the debug dict holds per-frame
+    ``flow`` (n, ny, nx, 2) and ``robustness`` (n, H, W) stacks; with
+    ``robustness.save_mask`` (or the accumulated-robustness denoiser)
+    ``accumulated_robustness`` (H, W), the sum of the frames' robustness
+    maps, which the denoiser hands to the reference-frame merge."""
     check_supported(config)
     device = resolve_device(device)
     scale = int(config.scale)
     debug_mode = bool(config.debug)
-    grey_method = str(config.get("grey_method", "FFT"))
     chunked = config.get("tpu", {}).get("pipeline", "auto") == "chunked"
-    accumulate_r = bool(config.accumulated_robustness_denoiser.get("enabled", False)
-                        or config.robustness.save_mask)
+    denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
+    accumulate_r = denoise or bool(config.robustness.save_mask)
 
     ref_img = _as_tensor(ref_img, device)
     comp_imgs = _as_tensor(comp_imgs, device)
     curves = (_as_tensor(std_curve, device), _as_tensor(diff_curve, device))
 
-    align_state = init_alignment(compute_grey_image(ref_img, grey_method), config)
+    align_state = init_alignment(to_grey(ref_img, config), config)
     ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
                                 config)
 
     h, w = ref_img.shape
-    num = torch.zeros((3, h * scale, w * scale), dtype=DEFAULT_FLOAT, device=device)
+    n_ch = 3 if config.mode == "bayer" else 1
+    num = torch.zeros((n_ch, h * scale, w * scale), dtype=DEFAULT_FLOAT, device=device)
     den = torch.zeros_like(num)
     acc_r = torch.zeros((h, w), dtype=DEFAULT_FLOAT, device=device) \
         if accumulate_r else None
     flows, rmaps, covs_list = [], [], []
     for frame in comp_imgs:
-        flow = align(align_state, compute_grey_image(frame, grey_method), config)
+        flow = align(align_state, to_grey(frame, config), config)
         r = compute_robustness(frame, ref_stats, flow, cfa_pattern,
                                white_balance, config)
         if acc_r is not None:
@@ -128,7 +137,8 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
         del covs_stack
 
     ref_covs = estimate_kernels(ref_img, config)
-    merge_ref_tiled(ref_img, ref_covs, num, den, cfa_pattern, config)
+    merge_ref_tiled(ref_img, ref_covs, num, den, cfa_pattern, config,
+                    acc_rob=acc_r if denoise else None)
     image = normalize_accum(num, den, refill_border=REFILL_BORDER).permute(1, 2, 0)
 
     debug = {}

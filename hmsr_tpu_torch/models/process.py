@@ -9,10 +9,11 @@ finishing chain, and the EXIF orientation of the image and of the
 accumulated robustness.
 
 Everything runs on one ``device``, the card unless the caller asks for the
-CPU: the burst is moved there once, and the image (H*s, W*s, 3) and the
-debug tensors are returned there. What the port lacks raises
+CPU: the burst is moved there once, and the image and the debug tensors
+are returned there. The image is (H*s, W*s, 3) with the finishing on, and
+(H*s, W*s, c) without it (c = 1 in grey mode). What the port lacks raises
 ``NotImplementedError`` before any work: the host finishing chain (OpenCV's
-Mertens fusion), a device mesh, the accumulated-robustness denoisers.
+Mertens fusion), a device mesh, the median and Gauss frame-count denoisers.
 """
 
 import os
@@ -25,13 +26,12 @@ from ..configs import default_config, sanitize_config, update_snr_config
 from ..finishing import apply_orientation, make_postprocess_device
 from ..io.burst import Burst, load_burst
 from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
-from ..ops.grey import compute_grey_image
 from ..utils.timing import getTime, timer
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
 from .merge_tiled import merge_tiled
-from .pipeline import make_pipeline
+from .pipeline import make_pipeline, to_grey
 from .robustness import compute_robustness, init_robustness
 
 #: the repo's ``data/`` directory of ISO-keyed noise curves.
@@ -75,8 +75,9 @@ def check_process_supported(config):
         raise NotImplementedError(f"tpu.mesh={list(mesh)}: sharding over several "
                                   f"devices is not ported")
     ard = config.accumulated_robustness_denoiser
-    if ard.median.enabled or ard.gauss.enabled or ard.merge.enabled:
-        raise NotImplementedError("the accumulated-robustness denoisers are not ported")
+    if ard.median.enabled or ard.gauss.enabled:
+        raise NotImplementedError("the median and Gauss frame-count denoisers are not "
+                                  "ported")
     pp = config.postprocessing
     if pp.enabled:
         # the JAX package's choice: the host chain unless "device" is asked
@@ -105,17 +106,16 @@ def _trace_stages(burst, std_curve, diff_curve, config, device):
             torch.cuda.synchronize(device)
         return x
 
-    grey_method = str(config.get("grey_method", "FFT"))
     ref, frame = burst.ref_raw, burst.comp_raws[0]
     curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
               torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
     cfa, wb = burst.cfa, burst.white_balance
     print(" -- Stage trace (first frame):")
     t0 = time.perf_counter()
-    astate = sync(init_alignment(compute_grey_image(ref, grey_method), config))
+    astate = sync(init_alignment(to_grey(ref, config), config))
     rstats = sync(init_robustness(ref, cfa, wb, curves, config))
     t0 = getTime(t0, " --- Ref init (grey+pyramid+stats)")
-    grey = sync(compute_grey_image(frame, grey_method))
+    grey = sync(to_grey(frame, config))
     t0 = getTime(t0, " --- Grey conversion")
     flow = sync(align(astate, grey, config))
     t0 = getTime(t0, " --- Alignment (BM + ICA)")
@@ -125,7 +125,8 @@ def _trace_stages(burst, std_curve, diff_curve, config, device):
     t0 = getTime(t0, " --- Kernel estimation")
     h, w = frame.shape
     s = int(config.scale)
-    num = torch.zeros((3, s * h, s * w), dtype=DEFAULT_FLOAT, device=device)
+    num = torch.zeros((3 if config.mode == "bayer" else 1, s * h, s * w),
+                      dtype=DEFAULT_FLOAT, device=device)
     den = torch.zeros_like(num)
     sync(merge_tiled(frame, flow, covs, r, num, den, cfa, config))
     getTime(t0, " --- Merge (one frame)")
@@ -150,9 +151,9 @@ def _try_iso_curves(burst, config):
 
 
 def process_burst(burst, config, device="cuda"):
-    """Returns ``(image (H*s, W*s, 3), debug)`` on ``device``; ``config`` is
-    resolved in place (noise model, SNR-based entries), as in the JAX
-    package."""
+    """Returns ``(image, debug)`` on ``device``, the image (H*s, W*s, 3)
+    with the finishing on; ``config`` is resolved in place (noise model,
+    SNR-based entries), as in the JAX package."""
     t0 = time.perf_counter()
     device = resolve_device(device)
     check_process_supported(config)
@@ -237,7 +238,8 @@ def process_burst(burst, config, device="cuda"):
             sharpening_config=pp.sharpening,
             do_devignette=pp.do_devignetting,
             xyz2cam=burst.xyz2cam)
-        image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(image)
+        rgb = image.expand(-1, -1, 3) if image.shape[-1] == 1 else image
+        image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(rgb)
 
     image = apply_orientation(image, burst.orientation)
     if "accumulated_robustness" in debug:

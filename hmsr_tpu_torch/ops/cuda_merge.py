@@ -8,12 +8,15 @@ frame) and ``merge_burst_pallas`` (frames grid). The kernels are
 ``pallas_merge.py:_merge_group_kernel``); their headers say what bounds them
 on the H100 and how the design answers it: one block per HR tile (or band
 of one), tile windows staged in shared memory; ``csrc/common.cuh`` decides
-the launch layout (:func:`merge_layout` reads it back). The accumulators
-keep the plain ``(3, H*s, W*s)`` shape (the TPU's ``padded_accum_shape`` is
-a tiling artefact) and are updated in place. A wrapper launches its kernel
-for CUDA tensors and runs the plain version only for CPU tensors;
-``merge_accumulate.launches`` and ``merge_burst_accumulate.launches`` count
-kernel launches.
+the launch layout (:func:`merge_layout` reads it back). Both carry the four
+variants of the Pallas kernel: Bayer or grey mode (``grey``: one
+accumulator plane, covariances on the raw grid, no CFA pick) times the
+steerable or the isotropic kernel (``iso``: no covariance is read). The
+accumulators keep the plain ``(c, H*s, W*s)`` shape, c = 3 (Bayer) or 1
+(grey) (the TPU's ``padded_accum_shape`` is a tiling artefact), and are
+updated in place. A wrapper launches its kernel for CUDA tensors and runs
+the plain version only for CPU tensors; ``merge_accumulate.launches`` and
+``merge_burst_accumulate.launches`` count kernel launches.
 """
 
 import ctypes
@@ -51,16 +54,26 @@ def scale_divisor(s, device):
     return torch.full((), float(s), dtype=DEFAULT_FLOAT, device=device)
 
 
-def tap_weight(ixx, ixy, iyy, dist_x, dist_y):
-    """Kernel weight ``exp(-1/2 d^T Omega^-1 d)`` of a tap at distance
-    (dist_x, dist_y), the quadratic form clamped at 0."""
-    z = ixx * dist_x * dist_x + 2.0 * ixy * dist_x * dist_y + iyy * dist_y * dist_y
-    return torch.exp(-0.5 * torch.clamp(z, min=0.0))
+def quad_form(inv, dist_x, dist_y):
+    """The kernel's exponent ``z = max(0, d^T Omega^-1 d)`` of a tap at
+    distance (dist_x, dist_y): ``inv`` is the inverse covariance (ixx, ixy,
+    iyy), or None for the isotropic kernel, ``z = max(0, 2 (dx^2 + dy^2))``."""
+    if inv is None:
+        z = 2.0 * (dist_x * dist_x + dist_y * dist_y)
+    else:
+        ixx, ixy, iyy = inv
+        z = ixx * dist_x * dist_x + 2.0 * ixy * dist_x * dist_y + iyy * dist_y * dist_y
+    return torch.clamp(z, min=0.0)
 
 
 def accumulate_tap(vals, accs, w, c, i, j, cfa):
-    """Add ``w * c`` to ``vals`` and ``w`` to ``accs`` (per-channel lists)
-    in the CFA channel of raw pixel (i, j); ``cfa``: (2, 2) int array."""
+    """Add ``w * c`` to ``vals`` and ``w`` to ``accs`` (per-channel lists):
+    in the CFA channel of raw pixel (i, j) for a (2, 2) int array ``cfa``
+    (Bayer), to the one channel for ``cfa=None`` (grey mode)."""
+    if cfa is None:
+        vals[0] = vals[0] + w * c
+        accs[0] = accs[0] + w
+        return
     pi, pj = torch.remainder(i, 2), torch.remainder(j, 2)
     ch = torch.where(pi == 0,
                      torch.where(pj == 0, int(cfa[0, 0]), int(cfa[0, 1])),
@@ -72,15 +85,16 @@ def accumulate_tap(vals, accs, w, c, i, j, cfa):
 
 
 def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
-                scale):
+                scale, grey=False, iso=False):
     """Plain version of K5: the semantics of
-    :func:`hmsr_tpu.models.merge_tiled.merge_tiled` (Bayer, steerable kernel,
-    integer scale) written per HR pixel, evaluated in bands of HR rows and
-    accumulated into ``num``/``den`` in place. Returns ``(num, den)``.
+    :func:`hmsr_tpu.models.merge_tiled.merge_tiled` (integer scale; Bayer or
+    ``grey`` mode, steerable or ``iso`` kernel) written per HR pixel,
+    evaluated in bands of HR rows and accumulated into ``num``/``den`` in
+    place. Returns ``(num, den)``.
     """
     s, Ts = int(scale), int(tile_size)
-    g = 2
-    cfa = np.asarray(cfa_pattern, dtype=np.int64)
+    g = 1 if grey else 2
+    cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
     H, W = comp_img.shape
     gh, gw = covs.shape[1:]
     n_ch, out_h, out_w = num.shape
@@ -123,25 +137,25 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
             (lr_mov_x < W) & ok_tile
         local_r = r[torch.clamp(R // s, max=H - 1), torch.clamp(C // s, max=W - 1)]
 
-        S2y, S2yc, q2_y = window(fy, ty, rl_y, sg, 0.5 * sg, gh, CWIN, CPAD)
-        S2x, S2xc, q2_x = window(fx, tx, rl_x, sg, 0.5 * sg, gw, CWIN, CPAD)
-        frac_y = (lr_mov_y / g - 0.5) - (S2y + 1 + q2_y).to(DEFAULT_FLOAT)
-        frac_x = (lr_mov_x / g - 0.5) - (S2x + 1 + q2_x).to(DEFAULT_FLOAT)
-        ci, cj = S2yc + 1 + q2_y, S2xc + 1 + q2_x
-        cc = []
-        for k in range(3):
-            c00 = _cov_at(covs[k], ci, cj)
-            c01 = _cov_at(covs[k], ci, cj + 1)
-            c10 = _cov_at(covs[k], ci + 1, cj)
-            c11 = _cov_at(covs[k], ci + 1, cj + 1)
-            top = c00 + frac_x * (c01 - c00)
-            bot = c10 + frac_x * (c11 - c10)
-            cc.append(top + frac_y * (bot - top))
-        det = cc[0] * cc[2] - cc[1] * cc[1]
-        inv_det = 1.0 / det
-        ixx = inv_det * cc[2]
-        ixy = -inv_det * cc[1]
-        iyy = inv_det * cc[0]
+        inv = None
+        if not iso:
+            S2y, S2yc, q2_y = window(fy, ty, rl_y, sg, 0.5 * sg, gh, CWIN, CPAD)
+            S2x, S2xc, q2_x = window(fx, tx, rl_x, sg, 0.5 * sg, gw, CWIN, CPAD)
+            frac_y = (lr_mov_y / g - 0.5) - (S2y + 1 + q2_y).to(DEFAULT_FLOAT)
+            frac_x = (lr_mov_x / g - 0.5) - (S2x + 1 + q2_x).to(DEFAULT_FLOAT)
+            ci, cj = S2yc + 1 + q2_y, S2xc + 1 + q2_x
+            cc = []
+            for k in range(3):
+                c00 = _cov_at(covs[k], ci, cj)
+                c01 = _cov_at(covs[k], ci, cj + 1)
+                c10 = _cov_at(covs[k], ci + 1, cj)
+                c11 = _cov_at(covs[k], ci + 1, cj + 1)
+                top = c00 + frac_x * (c01 - c00)
+                bot = c10 + frac_x * (c11 - c10)
+                cc.append(top + frac_y * (bot - top))
+            det = cc[0] * cc[2] - cc[1] * cc[1]
+            inv_det = 1.0 / det
+            inv = (inv_det * cc[2], -inv_det * cc[1], inv_det * cc[0])
 
         dist_ref_y = lr_mov_y - 0.5
         dist_ref_x = lr_mov_x - 0.5
@@ -162,7 +176,7 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
                 c = torch.where(in_frame,
                                 comp_img[vy.clamp(0, H - 1), vx.clamp(0, W - 1)],
                                 torch.zeros((), device=dev))
-                w = tap_weight(ixx, ixy, iyy, dist_x, dist_y) * wr * inb
+                w = torch.exp(-0.5 * quad_form(inv, dist_x, dist_y)) * wr * inb
                 accumulate_tap(vals, accs, w, c, i_g, j_g, cfa)
         num[:, y0:y1] += torch.stack(vals, 0)
         den[:, y0:y1] += torch.stack(accs, 0)
@@ -170,15 +184,17 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
 
 
 def merge_burst_plain(comp_stack, flows, covs_stack, r_stack, num, den,
-                      cfa_pattern, tile_size, scale):
+                      cfa_pattern, tile_size, scale, grey=False, iso=False):
     """Plain version of K5': :func:`merge_plain` over the frames of the
     stacks, in order. Returns ``(num, den)``."""
     for comp, flow, covs, r in zip(comp_stack, flows, covs_stack, r_stack):
-        merge_plain(comp, flow, covs, r, num, den, cfa_pattern, tile_size, scale)
+        merge_plain(comp, flow, covs, r, num, den, cfa_pattern, tile_size, scale,
+                    grey, iso)
     return num, den
 
 
-def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, lead=()):
+def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, grey,
+                      lead=()):
     """Checks shared by the K5 and K5' wrappers; ``lead`` is the frame axis
     of the stacked inputs (empty for one frame). Returns ``(H, W)``."""
     Ts, s = int(tile_size), int(scale)
@@ -189,13 +205,14 @@ def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, lead=()):
                         ("den", den, 3)):
         _build.check_f32(name, t, nd, dev)
     H, W = comp.shape[nl:]
+    n_ch = 1 if grey else 3
     _build.check_arg(all(tuple(t.shape[:nl]) == lead for t in (comp, flow, covs, r)),
                      f"stacks of different lengths: comp {tuple(comp.shape)}, flow "
                      f"{tuple(flow.shape)}, covs {tuple(covs.shape)}, r {tuple(r.shape)}")
     _build.check_arg(s == scale and s >= 1, f"integer scale required, got {scale}")
-    _build.check_arg(tuple(num.shape) == (3, H * s, W * s) == tuple(den.shape),
+    _build.check_arg(tuple(num.shape) == (n_ch, H * s, W * s) == tuple(den.shape),
                      f"accumulators {tuple(num.shape)}, {tuple(den.shape)} "
-                     f"for a {(H, W)} frame at scale {s}")
+                     f"for a {(H, W)} {'grey' if grey else 'Bayer'} frame at scale {s}")
     _build.check_arg(tuple(r.shape[nl:]) == (H, W) and covs.shape[nl] == 3,
                      f"r {tuple(r.shape)}, covs {tuple(covs.shape)}")
     fy, fx, fc = flow.shape[nl:]
@@ -205,24 +222,29 @@ def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, lead=()):
     return H, W
 
 
-def merge_layout(tile_size, scale, frames):
+def merge_layout(tile_size, scale, frames, grey=False, iso=False):
     """The launch layout of K5 (``frames=1``) and of K5' over ``frames``
-    frames, as the built library computes it: ``rows`` HR rows per block,
-    ``bands`` blocks per HR tile, ``smem_bytes`` of dynamic shared memory per
-    block. Needs the CUDA toolchain (it builds the library), not a card."""
+    frames in the variant (``grey``, ``iso``), as the built library computes
+    it: ``rows`` HR rows per block, ``bands`` blocks per HR tile,
+    ``smem_bytes`` of dynamic shared memory per block. Needs the CUDA
+    toolchain (it builds the library), not a card."""
     out = (ctypes.c_int * 3)()
     _build.check(_build.library().hmsr_merge_layout(int(tile_size), int(scale),
-                                                     int(frames), out),
+                                                     int(frames), int(grey), int(iso),
+                                                     out),
                  "hmsr_merge_layout")
     return dict(rows=out[0], bands=out[1], smem_bytes=out[2])
 
 
-def _launch_args(cfa_pattern, tensors):
+def _launch_args(cfa_pattern, grey, tensors):
     """CUDA-side checks of both wrappers; returns the CFA packed as
-    ``cfa00 | cfa01 << 2 | cfa10 << 4 | cfa11 << 6``."""
+    ``cfa00 | cfa01 << 2 | cfa10 << 4 | cfa11 << 6`` (0 in grey mode, which
+    reads no CFA)."""
     _build.require_cuda(tensors[0].device)
     _build.check_arg(all(t.is_contiguous() for t in tensors),
                      "merge inputs must be contiguous")
+    if grey:
+        return 0
     cfa = [int(v) for v in np.asarray(cfa_pattern).reshape(-1)]
     _build.check_arg(len(cfa) == 4 and all(0 <= v < 3 for v in cfa),
                      f"bad CFA pattern {cfa}")
@@ -230,24 +252,27 @@ def _launch_args(cfa_pattern, tensors):
 
 
 def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
-                     tile_size, scale):
-    """K5: accumulate one Bayer frame into ``num``/``den`` (3, H*s, W*s) in
-    place; returns ``(num, den)``.
+                     tile_size, scale, grey=False, iso=False):
+    """K5: accumulate one frame into ``num``/``den`` (c, H*s, W*s) in place;
+    returns ``(num, den)``.
 
     ``comp_img``: (H, W); ``flow``: (ny, nx, 2) per raw Ts-tile;
-    ``covs``: (3, gh, gw) on the grey grid; ``r``: (H, W) robustness; all
-    contiguous float32 on one device. Integer ``scale`` only.
+    ``covs``: (3, gh, gw) on the covariance grid (the grey grid in Bayer
+    mode, the raw grid in ``grey`` mode; not read with ``iso``); ``r``:
+    (H, W) robustness; all contiguous float32 on one device. c is 3 in
+    Bayer mode and 1 in ``grey`` mode. Integer ``scale`` only.
     """
     Ts, s = int(tile_size), int(scale)
-    H, W = _check_merge_args(comp_img, flow, covs, r, num, den, Ts, scale)
+    H, W = _check_merge_args(comp_img, flow, covs, r, num, den, Ts, scale, grey)
     if comp_img.device.type == "cpu":
-        return merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, Ts, s)
-    cfa = _launch_args(cfa_pattern, (comp_img, flow, covs, r, num, den))
+        return merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, Ts, s,
+                           grey, iso)
+    cfa = _launch_args(cfa_pattern, grey, (comp_img, flow, covs, r, num, den))
     code = _build.library().hmsr_merge(
         _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1],
         _build.ptr(covs), covs.shape[1], covs.shape[2], _build.ptr(r),
         _build.ptr(num), _build.ptr(den), num.shape[1], num.shape[2], Ts, s,
-        cfa, _build.stream_of(comp_img))
+        cfa, int(grey), int(iso), _build.stream_of(comp_img))
     _build.check(code, "hmsr_merge")
     merge_accumulate.launches += 1
     return num, den
@@ -257,28 +282,32 @@ merge_accumulate.launches = 0
 
 
 def merge_burst_accumulate(comp_stack, flows, covs_stack, r_stack, num, den,
-                           cfa_pattern, tile_size, scale):
-    """K5': accumulate the F Bayer frames of the stacks into ``num``/``den``
-    (3, H*s, W*s) in place, in frame order, in one launch; returns ``(num,
-    den)``, bit-identical to F :func:`merge_accumulate` calls.
+                           cfa_pattern, tile_size, scale, grey=False, iso=False):
+    """K5': accumulate the F frames of the stacks into ``num``/``den``
+    (c, H*s, W*s) in place, in frame order, in one launch; returns ``(num,
+    den)``, bit-identical to F :func:`merge_accumulate` calls of the same
+    variant.
 
     ``comp_stack``: (F, H, W); ``flows``: (F, ny, nx, 2); ``covs_stack``:
     (F, 3, gh, gw); ``r_stack``: (F, H, W); all contiguous float32 on one
-    device. Integer ``scale`` only.
+    device; ``grey`` and ``iso`` as for :func:`merge_accumulate`. Integer
+    ``scale`` only.
     """
     Ts, s = int(tile_size), int(scale)
     F = comp_stack.shape[0] if comp_stack.dim() == 3 else -1
     H, W = _check_merge_args(comp_stack, flows, covs_stack, r_stack, num, den, Ts,
-                             scale, lead=(F,))
+                             scale, grey, lead=(F,))
     if comp_stack.device.type == "cpu":
         return merge_burst_plain(comp_stack, flows, covs_stack, r_stack, num, den,
-                                 cfa_pattern, Ts, s)
-    cfa = _launch_args(cfa_pattern, (comp_stack, flows, covs_stack, r_stack, num, den))
+                                 cfa_pattern, Ts, s, grey, iso)
+    cfa = _launch_args(cfa_pattern, grey,
+                       (comp_stack, flows, covs_stack, r_stack, num, den))
     code = _build.library().hmsr_merge_burst(
         _build.ptr(comp_stack), F, H, W, _build.ptr(flows), flows.shape[1],
         flows.shape[2], _build.ptr(covs_stack), covs_stack.shape[2],
         covs_stack.shape[3], _build.ptr(r_stack), _build.ptr(num), _build.ptr(den),
-        num.shape[1], num.shape[2], Ts, s, cfa, _build.stream_of(comp_stack))
+        num.shape[1], num.shape[2], Ts, s, cfa, int(grey), int(iso),
+        _build.stream_of(comp_stack))
     _build.check(code, "hmsr_merge_burst")
     merge_burst_accumulate.launches += 1
     return num, den

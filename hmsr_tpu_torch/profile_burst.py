@@ -3,11 +3,12 @@
 Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
     python3 -m hmsr_tpu_torch.profile_burst [--height 3000 --width 4000
-        --frames 20 --seed 0 --pipeline scan --out profile.txt]
+        --frames 20 --seed 0 --pipeline scan --mode bayer --out profile.txt]
 
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
-``--pipeline``: scan, or chunked with chunks of 5) once to warm up,
+``--pipeline``: scan, or chunked with chunks of 5; ``--mode grey``:
+``bench.py``'s grey cell, the frames taken as grey images) once to warm up,
 :data:`RUNS` times unprofiled (wall seconds, each and the median), and once
 under ``torch.profiler`` with a ``record_function`` range around every stage
 call of :mod:`hmsr_tpu_torch.models.pipeline`. For the unprofiled runs it
@@ -127,6 +128,7 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pipeline", choices=("scan", "chunked"), default="scan")
+    ap.add_argument("--mode", choices=("bayer", "grey"), default="bayer")
     ap.add_argument("--out", default=None, help="also write the table here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -139,6 +141,7 @@ def main(argv=None):
     std, diff = affine_curves()
     config = burst_config((args.height, args.width), burst_snr(frames[0], std))
     config["tpu"] = {"pipeline": args.pipeline, "merge_chunk": 5}
+    config.mode = args.mode
     pipe = P.make_pipeline(config, CFA_RGGB, WB, dev)
     run_args = (frames[0], frames[1:], torch.as_tensor(std, device=dev),
                 torch.as_tensor(diff, device=dev))
@@ -192,7 +195,8 @@ def main(argv=None):
             stages[stage] = (calls, us + 1e3 * ms * share)
     lines = [smi,
              f"burst {args.frames}x{args.height}x{args.width} x{config.scale}, Ts="
-             f"{config.block_matching.tuning.tile_size}, pipeline {args.pipeline}",
+             f"{config.block_matching.tuning.tile_size}, pipeline {args.pipeline}, "
+             f"mode {args.mode}",
              f"unprofiled warm runs: {', '.join(f'{w:.4f}' for w in walls)} s, "
              f"median {statistics.median(walls):.4f} s",
              f"  host until the call returns: {', '.join(f'{t:.4f}' for t in enqueues)} "

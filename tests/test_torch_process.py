@@ -108,6 +108,33 @@ def test_process_arrays_with_finishing(results):
     (x_lo + delta)^(1/2.2) - x_lo^(1/2.2): the curve's slope at x_lo spent
     over delta. The linear values are recovered as y^2.2."""
     (img_j, _), (img_t, _), _, _ = results[True]
+    _check_finishing(img_t, img_j)
+
+
+@pytest.mark.parametrize("variant", ["grey", "merge_denoiser"])
+def test_process_arrays_variants_with_finishing(burst, variant):
+    """``process_arrays`` with the device finishing in grey mode (the
+    one-channel image repeated to three before the finishing) and with the
+    accumulated-robustness merge denoiser (``process_burst`` enables the
+    denoiser, whose only effect is in the reference-frame merge), against the
+    JAX package with :func:`test_process_arrays_with_finishing`'s bounds."""
+    ref, comps = burst
+    jc, pc = jax_config(True), port_config(True)
+    for c in (jc, pc):
+        if variant == "grey":
+            c.mode = "grey"
+        else:
+            c.accumulated_robustness_denoiser.merge.enabled = True
+    img_j, dbg_j = j_process_arrays(ref, comps, jc, iso=100)
+    img_t, dbg_t = P.process_arrays(ref, comps, pc, iso=100, device="cpu")
+    assert tuple(img_t.shape) == (2 * SIZE, 2 * SIZE, 3)
+    assert pc.accumulated_robustness_denoiser.enabled == (variant == "merge_denoiser")
+    assert dbg_t.keys() == dbg_j.keys()
+    _check_finishing(img_t, img_j)
+    assert kernel_counts() == (0,) * 6
+
+
+def _check_finishing(img_t, img_j):
     crop = slice(8 + 12, -(8 + 12))
     y_t, y_j = n(img_t)[crop, crop].astype(np.float64), \
         np.asarray(img_j)[crop, crop].astype(np.float64)
