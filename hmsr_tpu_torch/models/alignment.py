@@ -1,7 +1,9 @@
 """Coarse-to-fine alignment (twin of :mod:`hmsr_tpu.models.alignment`).
 
 Per frame: a Gaussian pyramid descent of {upscale flow -> integer block
-matching -> ``n_iter`` ICA Gauss-Newton steps} on every level. The reference
+matching -> ``n_iter`` ICA Gauss-Newton steps} on every level. The flow is
+upscaled nearest, or with ``jax.image.resize``'s bilinear or bicubic rule
+(:mod:`hmsr_tpu_torch.ops.resize`). The reference
 grey image is wrap-padded to a tile-size multiple and its pyramid, tiles,
 gradients and Hessians are computed once per burst; the moving pyramid is
 built from the unpadded frame. The Gauss-Newton solve terms of every level
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.pyramid import build_gaussian_pyramid
+from ..ops.resize import resize
 from ..utils.types import DEFAULT_FLOAT
 from .block_matching import match_l1, match_l2
 from .ica import IcaRefState, init_ica, refine_ica_fused, refine_ica_tiled
@@ -80,14 +83,14 @@ def upscale_flow(flow, npatches, list_id, config):
     factor = t.factors[list_id + 1]
     repeat = factor // (new_ts // prev_ts)
 
+    mode = t.flow_upscale_mode
     if repeat == 1:
         up = flow
-    elif t.flow_upscale_mode == "nearest":
+    elif mode == "nearest":
         up = flow.repeat_interleave(repeat, dim=0).repeat_interleave(repeat, dim=1)
     else:
-        raise NotImplementedError(
-            f"flow_upscale_mode={t.flow_upscale_mode!r} is not ported; "
-            f"only 'nearest' is")
+        up = resize(flow, (flow.shape[0] * repeat, flow.shape[1] * repeat),
+                    {"bilinear": "linear", "bicubic": "cubic"}[mode])
     up = up * float(factor)
 
     ny, nx = npatches

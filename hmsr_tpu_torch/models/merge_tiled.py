@@ -1,16 +1,18 @@
 """Merge accumulation (twin of :mod:`hmsr_tpu.models.merge_tiled`).
 
 - :func:`merge_tiled` accumulates a non-reference frame (Alg. 4) through K5
-  (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_accumulate`), in place.
-- :func:`merge_ref_tiled` accumulates the reference frame (Alg. 11) with
-  torch ops: the JAX package runs it as XLA, not Pallas. It is written in the
-  direct gather form of :func:`hmsr_tpu.models.merge.merge_ref` and
-  evaluated in bands of HR rows so that no full-size tap temporaries exist.
+  (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_accumulate`), in place, at an
+  integer scale (a fractional one takes :func:`.merge.merge`).
+- :func:`merge_ref_tiled` accumulates the reference frame (Alg. 11) at any
+  scale with torch ops: the JAX package runs it as XLA, not Pallas. It is
+  written in the direct gather form of :func:`hmsr_tpu.models.merge.merge_ref`
+  and evaluated in bands of HR rows so that no full-size tap temporaries
+  exist (``merge_ref_banded`` of the JAX pipeline at a fractional scale,
+  ``merge_ref_tiled`` at an integer one: the same function).
 
-Both take every variant of the JAX package's integer-scale merge: Bayer or
-grey mode (``mode``), the steerable or the isotropic kernel
-(``merging.kernel``), and for the reference frame the accumulated-robustness
-denoiser (``acc_rob``).
+Both take every variant of the JAX package's merge: Bayer or grey mode
+(``mode``), the steerable or the isotropic kernel (``merging.kernel``), and
+for the reference frame the accumulated-robustness denoiser (``acc_rob``).
 """
 
 import numpy as np
@@ -20,12 +22,18 @@ from ..ops.cuda_merge import accumulate_tap, merge_accumulate, quad_form, scale_
 from ..utils.types import DEFAULT_FLOAT, EPSILON_DIV
 
 
+def integer_scale(config):
+    """Whether the configuration's scale is an integer (K5 and K5' serve
+    it; a fractional scale takes the gather merge)."""
+    return float(config.scale) == int(config.scale)
+
+
 def check_merge_config(config):
-    """The merge geometry the port supports: an integer scale (returned).
-    Raises ``NotImplementedError`` otherwise."""
+    """The merge geometry of K5 and K5': an integer scale of at least 1
+    (returned). Raises ``ValueError`` otherwise."""
     s = int(config.scale)
-    if s != config.scale or s < 1:
-        raise NotImplementedError(f"non-integer scale {config.scale} is not ported")
+    if not integer_scale(config) or s < 1:
+        raise ValueError(f"the tiled merge needs an integer scale, got {config.scale}")
     return s
 
 
@@ -50,12 +58,14 @@ def merge_tiled(comp_img, flow, covs, r, num, den, cfa_pattern, config):
 
 def _interp_cov(covs, kmap_i, kmap_j):
     """Bilinear covariance interpolation with signed (truncation) fractions
-    and the lower index clamped at 0 (``hmsr_tpu.models.merge._interp_cov``)."""
+    and the lower index clamped at 0 (``hmsr_tpu.models.merge._interp_cov``);
+    an index past the grid reads its last row or column, as JAX's gather
+    clamps it."""
     gh, gw = covs.shape[1], covs.shape[2]
     iy, ix = torch.trunc(kmap_i), torch.trunc(kmap_j)
     frac_y, frac_x = kmap_i - iy, kmap_j - ix
-    fy = torch.clamp(iy.long(), min=0)
-    fx = torch.clamp(ix.long(), min=0)
+    fy = torch.clamp(iy.long(), 0, gh - 1)
+    fx = torch.clamp(ix.long(), 0, gw - 1)
     cy = torch.clamp(fy + 1, max=gh - 1)
     cx = torch.clamp(fx + 1, max=gw - 1)
     out = []
@@ -83,10 +93,12 @@ def _inverse(cc):
 
 def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
                     band_rows=512):
-    """Accumulate the reference frame into (num, den) in place; returns the
-    pair.
+    """Accumulate the reference frame into (num, den) (c, round(s H),
+    round(s W)) in place, at any scale s; returns the pair.
 
-    Bayer mode interpolates the covariance at ``(R/s - 0.5) / 2`` on the grey
+    The HR pixel R sits at ``R/s`` (no half-pixel shift); its taps are
+    centred on ``round(R/s)``, and the covariance inverse is guarded. Bayer
+    mode interpolates the covariance at ``(R/s - 0.5) / 2`` on the grey
     grid, grey mode at ``R/s`` on the raw grid (the JAX package's two kmaps,
     kept as they are). With ``accumulated_robustness_denoiser.enabled`` and
     ``acc_rob`` (H, W), the taps widen to ``merge.rad_max``: where the
@@ -95,7 +107,6 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     3x3 taps, ``z`` as it is), and where it is below the count the
     reference's sums replace num/den instead of adding to them.
     """
-    s = check_merge_config(config)
     grey, iso = merge_variant(config)
     cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
     ard = config.accumulated_robustness_denoiser
@@ -106,7 +117,7 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     n_ch, out_h, out_w = num.shape
     dev = ref_img.device
 
-    s_dev = scale_divisor(s, dev)
+    s_dev = scale_divisor(config.scale, dev)
     pos_x = torch.arange(out_w, dtype=DEFAULT_FLOAT, device=dev)[None, :] / s_dev
     center_x = torch.round(pos_x).long()
     kmap_x = pos_x if grey else (pos_x - 0.5) / 2.0

@@ -5,15 +5,23 @@ Reference init once (grey, pyramid, tiles, gradients, Hessians, robustness
 reference stats), then the compared frames, then the reference-frame merge
 (with the accumulated-robustness denoiser when it is enabled) and the
 border-strip refill + divide. In grey mode (``mode: grey``) a frame is its
-own grey image and the accumulators have one plane.
+own grey image and the accumulators have one plane. The accumulators are
+``(c, round(s H), round(s W))`` at any scale s.
 
 - ``scan`` (``tpu.pipeline`` "auto" or "scan"): a Python loop over the
   frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
-  covariances -> merge (K5) into ``(num, den)`` in place.
+  covariances -> merge into ``(num, den)`` in place: K5 at an integer
+  scale, the gather merge (:func:`.merge.merge`, plain torch) at a
+  fractional one.
 - ``chunked``: the same analysis for every frame first, its flows,
   robustness maps and covariances stacked; then one burst-fused merge (K5')
   per chunk of ``tpu.merge_chunk`` frames (default 5; the last chunk is
-  shorter). The result is bit-identical to ``scan``.
+  shorter). The result is bit-identical to ``scan``. Integer scales only:
+  a fractional one raises ``ValueError``, as in the JAX package.
+
+With ``grey_method: decimating`` (Bayer mode) the alignment runs on the
+half-resolution grey image and each flow is moved to the raw tile grid
+(:func:`flow_to_raw_grid`) before robustness and merge.
 
 Everything runs on the one ``device`` given to :func:`make_pipeline`; there
 is no fallback to another device or to another implementation: whatever the
@@ -29,23 +37,62 @@ from ..ops.grey import compute_grey_image
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
-from .merge_tiled import check_merge_config, merge_ref_tiled, merge_tiled, merge_variant
+from .merge import merge
+from .merge_tiled import (check_merge_config, integer_scale, merge_ref_tiled,
+                          merge_tiled, merge_variant)
 from .robustness import compute_robustness, init_robustness
 
 PIPELINES = ("auto", "scan", "chunked")
 
 
 def check_supported(config):
-    """Raise ``NotImplementedError`` for configurations outside the slice."""
-    check_merge_config(config)
-    if str(config.get("grey_method", "FFT")) != "FFT":
-        raise NotImplementedError(
-            f"grey_method={config.grey_method!r} is not ported (needs "
-            f"flow_to_raw_grid)")
+    """Raise ``NotImplementedError`` for a pipeline form outside the port,
+    and ``ValueError`` for the chunked form at a fractional scale."""
     mode = config.get("tpu", {}).get("pipeline", "auto")
     if mode not in PIPELINES:
         raise NotImplementedError(f"tpu.pipeline={mode!r}: only the scan and "
                                   f"chunked pipelines are ported")
+    if mode == "chunked" and not integer_scale(config):
+        raise ValueError("tpu.pipeline=chunked requires an integer scale "
+                         "(tiled merge geometry)")
+
+
+def select_merge(config):
+    """The merge of a compared frame: K5 (:func:`.merge_tiled.merge_tiled`)
+    at an integer scale, the gather merge (:func:`.merge.merge`) at a
+    fractional one."""
+    return merge_tiled if integer_scale(config) else merge
+
+
+def accum_shape(config, raw_shape):
+    """``(c, round(s H), round(s W))``: c = 3 in Bayer mode, 1 in grey mode."""
+    h, w = raw_shape
+    scale = float(config.scale)
+    return (3 if config.mode == "bayer" else 1, round(scale * h), round(scale * w))
+
+
+def flow_to_raw_grid(flow, raw_shape, tile_size):
+    """A decimating-grey flow (tiles of ``tile_size`` grey pixels, values in
+    grey pixels) on the raw tile grid: values x2, each grey tile repeated
+    2x2 so that raw tile (i, j) reads grey tile (i // 2, j // 2), edge-padded
+    or cropped to the raw tile count (the JAX package's documented deviation
+    from the reference, README "Parity notes")."""
+    ny = -(-raw_shape[0] // tile_size)
+    nx = -(-raw_shape[1] // tile_size)
+    f = (flow * 2.0).repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    rows = torch.arange(ny, device=f.device).clamp(max=f.shape[0] - 1)
+    cols = torch.arange(nx, device=f.device).clamp(max=f.shape[1] - 1)
+    return f[rows[:, None], cols[None, :]]
+
+
+def to_raw_flow(flow, raw_shape, config):
+    """The flow of :func:`align` on the raw tile grid: converted by
+    :func:`flow_to_raw_grid` with the decimating grey in Bayer mode, as it
+    is otherwise."""
+    if config.mode == "bayer" and str(config.get("grey_method", "FFT")) == "decimating":
+        return flow_to_raw_grid(flow, raw_shape,
+                                int(config.block_matching.tuning.tile_size))
+    return flow
 
 
 def to_grey(frame, config):
@@ -81,15 +128,15 @@ def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
 
 def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
                  cfa_pattern, white_balance, device="cuda"):
-    """Returns ``(image (H*s, W*s, c), debug)``, c = 3 in Bayer mode and 1
-    in grey mode. With ``config.debug`` the debug dict holds per-frame
-    ``flow`` (n, ny, nx, 2) and ``robustness`` (n, H, W) stacks; with
+    """Returns ``(image (round(s H), round(s W), c), debug)``, c = 3 in
+    Bayer mode and 1 in grey mode. With ``config.debug`` the debug dict
+    holds per-frame ``flow`` (n, ny, nx, 2) on the raw tile grid and
+    ``robustness`` (n, H, W) stacks; with
     ``robustness.save_mask`` (or the accumulated-robustness denoiser)
     ``accumulated_robustness`` (H, W), the sum of the frames' robustness
     maps, which the denoiser hands to the reference-frame merge."""
     check_supported(config)
     device = resolve_device(device)
-    scale = int(config.scale)
     debug_mode = bool(config.debug)
     chunked = config.get("tpu", {}).get("pipeline", "auto") == "chunked"
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
@@ -103,15 +150,16 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
                                 config)
 
-    h, w = ref_img.shape
-    n_ch = 3 if config.mode == "bayer" else 1
-    num = torch.zeros((n_ch, h * scale, w * scale), dtype=DEFAULT_FLOAT, device=device)
+    merge_frame = select_merge(config)
+    num = torch.zeros(accum_shape(config, ref_img.shape), dtype=DEFAULT_FLOAT,
+                      device=device)
     den = torch.zeros_like(num)
-    acc_r = torch.zeros((h, w), dtype=DEFAULT_FLOAT, device=device) \
+    acc_r = torch.zeros(ref_img.shape, dtype=DEFAULT_FLOAT, device=device) \
         if accumulate_r else None
     flows, rmaps, covs_list = [], [], []
     for frame in comp_imgs:
-        flow = align(align_state, to_grey(frame, config), config)
+        flow = to_raw_flow(align(align_state, to_grey(frame, config), config),
+                           frame.shape, config)
         r = compute_robustness(frame, ref_stats, flow, cfa_pattern,
                                white_balance, config)
         if acc_r is not None:
@@ -120,7 +168,7 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
         if chunked:
             covs_list.append(covs)
         else:
-            merge_tiled(frame, flow, covs, r, num, den, cfa_pattern, config)
+            merge_frame(frame, flow, covs, r, num, den, cfa_pattern, config)
         if debug_mode or chunked:
             flows.append(flow)
             rmaps.append(r)

@@ -10,10 +10,12 @@ accumulated robustness.
 
 Everything runs on one ``device``, the card unless the caller asks for the
 CPU: the burst is moved there once, and the image and the debug tensors
-are returned there. The image is (H*s, W*s, 3) with the finishing on, and
-(H*s, W*s, c) without it (c = 1 in grey mode). What the port lacks raises
+are returned there. The image is (round(s H), round(s W), 3) with the
+finishing on, and has c channels without it (c = 1 in grey mode). What the port lacks raises
 ``NotImplementedError`` before any work: the host finishing chain (OpenCV's
-Mertens fusion), a device mesh, the median and Gauss frame-count denoisers.
+Mertens fusion) and a device mesh. The median or Gauss frame-count denoiser
+(``accumulated_robustness_denoiser.median`` / ``.gauss``) runs on the
+device after the pipeline, before the finishing.
 """
 
 import os
@@ -24,14 +26,14 @@ import torch
 
 from ..configs import default_config, sanitize_config, update_snr_config
 from ..finishing import apply_orientation, make_postprocess_device
+from ..finishing.denoise import frame_count_denoising_gauss, frame_count_denoising_median
 from ..io.burst import Burst, load_burst
 from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
 from ..utils.timing import getTime, timer
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
-from .merge_tiled import merge_tiled
-from .pipeline import make_pipeline, to_grey
+from .pipeline import accum_shape, make_pipeline, select_merge, to_grey, to_raw_flow
 from .robustness import compute_robustness, init_robustness
 
 #: the repo's ``data/`` directory of ISO-keyed noise curves.
@@ -74,10 +76,6 @@ def check_process_supported(config):
     if mesh and int(mesh[0]) * int(mesh[1]) > 1:
         raise NotImplementedError(f"tpu.mesh={list(mesh)}: sharding over several "
                                   f"devices is not ported")
-    ard = config.accumulated_robustness_denoiser
-    if ard.median.enabled or ard.gauss.enabled:
-        raise NotImplementedError("the median and Gauss frame-count denoisers are not "
-                                  "ported")
     pp = config.postprocessing
     if pp.enabled:
         # the JAX package's choice: the host chain unless "device" is asked
@@ -117,18 +115,16 @@ def _trace_stages(burst, std_curve, diff_curve, config, device):
     t0 = getTime(t0, " --- Ref init (grey+pyramid+stats)")
     grey = sync(to_grey(frame, config))
     t0 = getTime(t0, " --- Grey conversion")
-    flow = sync(align(astate, grey, config))
+    flow = sync(to_raw_flow(align(astate, grey, config), frame.shape, config))
     t0 = getTime(t0, " --- Alignment (BM + ICA)")
     r = sync(compute_robustness(frame, rstats, flow, cfa, wb, config))
     t0 = getTime(t0, " --- Robustness")
     covs = sync(estimate_kernels(frame, config))
     t0 = getTime(t0, " --- Kernel estimation")
-    h, w = frame.shape
-    s = int(config.scale)
-    num = torch.zeros((3 if config.mode == "bayer" else 1, s * h, s * w),
-                      dtype=DEFAULT_FLOAT, device=device)
+    num = torch.zeros(accum_shape(config, frame.shape), dtype=DEFAULT_FLOAT,
+                      device=device)
     den = torch.zeros_like(num)
-    sync(merge_tiled(frame, flow, covs, r, num, den, cfa, config))
+    sync(select_merge(config)(frame, flow, covs, r, num, den, cfa, config))
     getTime(t0, " --- Merge (one frame)")
 
 
@@ -151,9 +147,9 @@ def _try_iso_curves(burst, config):
 
 
 def process_burst(burst, config, device="cuda"):
-    """Returns ``(image, debug)`` on ``device``, the image (H*s, W*s, 3)
-    with the finishing on; ``config`` is resolved in place (noise model,
-    SNR-based entries), as in the JAX package."""
+    """Returns ``(image, debug)`` on ``device``, the image (round(s H),
+    round(s W), 3) with the finishing on; ``config`` is resolved in place
+    (noise model, SNR-based entries), as in the JAX package."""
     t0 = time.perf_counter()
     device = resolve_device(device)
     check_process_supported(config)
@@ -225,6 +221,23 @@ def process_burst(burst, config, device="cuda"):
         prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
     else:
         image, debug = pipe(ref, comps, *curves)
+
+    # ---- frame-count-aware post denoising, with the pipeline's scale
+    if ard.median.enabled or ard.gauss.enabled:
+        if verbose_1:
+            print("-- Robustness aware bluring")
+        t_dn = time.perf_counter()
+        acc_r = debug["accumulated_robustness"]
+        for cfg, fn in ((ard.median, frame_count_denoising_median),
+                        (ard.gauss, frame_count_denoising_gauss)):
+            if cfg.enabled:
+                dc = cfg.copy()
+                dc["scale"] = config.scale
+                image = fn(image, acc_r, dc)
+        if verbose_2:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            getTime(t_dn, " -- Frame-count denoising")
 
     # ---- finishing on the device
     pp = config.postprocessing

@@ -3,12 +3,15 @@
 Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
     python3 -m hmsr_tpu_torch.profile_burst [--height 3000 --width 4000
-        --frames 20 --seed 0 --pipeline scan --mode bayer --out profile.txt]
+        --frames 20 --seed 0 --pipeline scan --mode bayer --scale 2
+        --out profile.txt]
 
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
 ``--pipeline``: scan, or chunked with chunks of 5; ``--mode grey``:
-``bench.py``'s grey cell, the frames taken as grey images) once to warm up,
+``bench.py``'s grey cell, the frames taken as grey images; ``--scale``: the
+output scale, with ``bench.py``'s mutations of its x3 and x1 cells at 3
+and 1, :data:`SCALE_CELLS`) once to warm up,
 :data:`RUNS` times unprofiled (wall seconds, each and the median), and once
 under ``torch.profiler`` with a ``record_function`` range around every stage
 call of :mod:`hmsr_tpu_torch.models.pipeline`. For the unprofiled runs it
@@ -50,12 +53,17 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .measure import card
 from .models import pipeline as P
 from .ops import cuda_ica, cuda_merge, cuda_warp
-from .synthetic import CFA_RGGB, WB, affine_curves, burst_config, burst_snr, make_burst
+from .synthetic import (BENCH_CELLS, CFA_RGGB, WB, affine_curves, burst_config,
+                        burst_snr, make_burst)
 
 STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
-          "compute_robustness", "estimate_kernels", "merge_tiled",
+          "compute_robustness", "estimate_kernels", "merge_tiled", "merge",
           "_merge_burst_chunked", "merge_ref_tiled", "normalize_accum")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
+
+#: scales whose ``bench.py`` cell mutates more than the scale
+#: (:data:`hmsr_tpu_torch.synthetic.BENCH_CELLS`)
+SCALE_CELLS = {1.0: BENCH_CELLS["x1"], 3.0: BENCH_CELLS["x3"]}
 #: hand-written kernel -> the wrapper that launches it (and counts launches)
 HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.ica_steps,
                 "ica_fused_kernel": cuda_ica.ica_fused,
@@ -129,6 +137,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pipeline", choices=("scan", "chunked"), default="scan")
     ap.add_argument("--mode", choices=("bayer", "grey"), default="bayer")
+    ap.add_argument("--scale", type=float, default=2.0)
     ap.add_argument("--out", default=None, help="also write the table here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -139,7 +148,9 @@ def main(argv=None):
     _instrument()
     frames = make_burst(args.height, args.width, args.frames, args.seed, dev)
     std, diff = affine_curves()
-    config = burst_config((args.height, args.width), burst_snr(frames[0], std))
+    scale = int(args.scale) if args.scale == int(args.scale) else args.scale
+    config = burst_config((args.height, args.width), burst_snr(frames[0], std), scale)
+    SCALE_CELLS.get(float(scale), lambda c: None)(config)
     config["tpu"] = {"pipeline": args.pipeline, "merge_chunk": 5}
     config.mode = args.mode
     pipe = P.make_pipeline(config, CFA_RGGB, WB, dev)

@@ -47,6 +47,26 @@ def burst_config(shape, snr, scale=2, debug=False, alpha=ALPHA, beta=BETA):
     return c
 
 
+def _grey(c):
+    c.mode = "grey"
+
+
+def _x3(c):
+    c.scale = 3
+    c.accumulated_robustness_denoiser.enabled = True
+
+
+def _x1(c):
+    c.scale = 1
+    c.robustness.enabled = False
+    c.robustness.save_mask = False
+
+
+#: ``bench.py``'s mutations of its headline configuration for the cells
+#: grey, x3 and x1 (``bench.py:312-322``)
+BENCH_CELLS = {"grey": _grey, "x3": _x3, "x1": _x1}
+
+
 def make_burst(h, w, n_frames, seed, device, alpha=ALPHA, beta=BETA,
                brightness=None):
     """(n_frames, h, w) float32 raw frames on ``device``: a blocky random

@@ -178,15 +178,17 @@ def test_align(cfg):
 
 
 def test_upscale_flow():
+    """Between the levels of the ``bench.py`` configuration (re-tiled by 2
+    and 4, zero-padded to the level's tiles): nearest exactly, bilinear and
+    bicubic (``jax.image.resize``'s rule, ops/resize.py) within 1e-5."""
     config = default_config(256)
     flow = np.random.RandomState(6).uniform(-2, 2, (3, 4, 2)).astype(np.float32)
-    for list_id, npatches in ((2, (13, 17)), (0, (7, 8))):
-        got = alignment.upscale_flow(t(flow), npatches, list_id, config)
-        want = j_align.upscale_flow(jnp.asarray(flow), npatches, list_id, config)
-        assert max_abs(got, want) == 0.0
-    config.block_matching.tuning.flow_upscale_mode = "bilinear"
-    with pytest.raises(NotImplementedError):
-        alignment.upscale_flow(t(flow), (13, 17), 2, config)
+    for mode, tol in (("nearest", 0.0), ("bilinear", 1e-5), ("bicubic", 1e-5)):
+        config.block_matching.tuning.flow_upscale_mode = mode
+        for list_id, npatches in ((2, (13, 17)), (1, (12, 16)), (0, (7, 8))):
+            got = alignment.upscale_flow(t(flow), npatches, list_id, config)
+            want = j_align.upscale_flow(jnp.asarray(flow), npatches, list_id, config)
+            assert max_abs(got, want) <= tol, (mode, list_id)
 
 
 def test_cpu_wrappers_launch_no_kernel():

@@ -243,23 +243,17 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in res.stdout
 
 
-PROCESS_CHANGES = ["host_finishing", "auto_tonemap_with_cv2", "mesh", "median_denoiser",
-                   "gauss_denoiser"]
+PROCESS_CHANGES = ["host_finishing", "auto_tonemap_with_cv2", "mesh"]
 
 
-@pytest.mark.parametrize("change", ["decimating", "scale1.5", "fused_pipeline",
-                                    "vmapped_pipeline"] + PROCESS_CHANGES)
+@pytest.mark.parametrize("change", ["fused_pipeline", "vmapped_pipeline"] + PROCESS_CHANGES)
 def test_unported_configurations_raise(change, monkeypatch):
-    """What the slice lacks raises ``NotImplementedError``: in
+    """What the port lacks raises ``NotImplementedError``: in
     ``make_pipeline``, and in ``process_arrays`` before any work for what only
-    the process layer reads (finishing, mesh, the denoisers)."""
+    the process layer reads (the host finishing chain, a mesh)."""
     config = small_config(128)
     if change == "vmapped_pipeline":
         config.tpu.pipeline = "vmapped"
-    elif change == "decimating":
-        config.grey_method = "decimating"
-    elif change == "scale1.5":
-        config.scale = 1.5
     elif change == "fused_pipeline":
         config.tpu.pipeline = "fused"
     elif change == "host_finishing":
@@ -270,8 +264,6 @@ def test_unported_configurations_raise(change, monkeypatch):
         config.postprocessing.do_tonemapping = True
     elif change == "mesh":
         config.tpu.mesh = [2, 1]
-    else:
-        config.accumulated_robustness_denoiser[change.split("_")[0]].enabled = True
     with pytest.raises(NotImplementedError):
         if change in PROCESS_CHANGES:
             from hmsr_tpu_torch.models.process import process_arrays
