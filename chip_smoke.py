@@ -87,6 +87,21 @@ and power limit:
    within 0.05 dB of ``ACCURACY_r05.json``, the robustness-on ones also
    within 0.05 dB of the port's scores on the CPU (:func:`phase_accuracy`
    says why), each printed beside the records'.
+10. the user's entry (:func:`phase_entry`): (a) the phase 4 burst written as
+   an ``.npz`` bundle (``np.savez``, uncompressed) under ``build/``; (b) the
+   port's CLI (``hmsr_tpu_torch.run_handheld``) on it in a subprocess at
+   ``verbose=2``: exit 0, the kernels' launches of the main path, no JAX
+   loaded, an 8000x6000 8-bit RGB PNG and its ``.rob.png``; its split as
+   the CLI prints it (load, pipeline, finishing, save) and its wall; (c)
+   ``process`` on the bundle in-process once per finishing route (the
+   default ``auto``: the device chain; the device chain with tonemapping;
+   ``host``; ``host`` with tonemapping, cv2 made unavailable so that it is
+   the plain smoothstep), launch counts asserted, each host route within
+   1e-5 of its device route, the finishing timed apart; (d) the graft
+   entry (:mod:`hmsr_tpu_torch.graft_entry`) on the card against the CPU;
+   (e) ``unprocess_isp`` on a 3000x4000x3 image on the card against the
+   CPU with the same generators (1e-6); (f) RAW10 and RAW12 unpacking of
+   12 MP of random bytes on the card, bit for bit against the CPU.
 
 The line before the last is a JSON object with one entry per kernel (K5
 and K5' with their four variants under ``variants``); the last line is
@@ -94,21 +109,28 @@ and K5' with their four variants under ``variants``); the last line is
 JAX package ``hmsr_tpu``.
 """
 
+import contextlib
 import copy
+import io
 import json
 import os
+import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from hmsr_tpu_torch import configs, probe_cta_cost, score_accuracy
+from hmsr_tpu_torch import configs, graft_entry, probe_cta_cost, score_accuracy
 from hmsr_tpu_torch.finishing.denoise import (frame_count_denoising_gauss,
                                               frame_count_denoising_median)
+from hmsr_tpu_torch.finishing.unprocess import unprocess_isp
+from hmsr_tpu_torch.io.unpack import unpack_raw10, unpack_raw12
 from hmsr_tpu_torch.measure import bound, card, timed
 from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_sizes,
                                              init_alignment)
@@ -116,7 +138,7 @@ from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.merge_tiled import integer_scale
 from hmsr_tpu_torch.models.pipeline import accum_shape, make_pipeline, to_grey
-from hmsr_tpu_torch.models.process import process_arrays
+from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
@@ -1272,6 +1294,254 @@ def phase_accuracy(device):
     return {what: got for what, got, _ in rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the user's entry
+# ---------------------------------------------------------------------------
+
+#: the child of phase 10 (b): the port's CLI, then the launches of its
+#: kernels and a check that it loaded neither JAX nor the JAX package
+RUN_CLI = (
+    "import time\n"
+    "t0 = time.perf_counter()\n"
+    "import json, sys, torch\n"
+    "from hmsr_tpu_torch.run_handheld import main\n"
+    "from hmsr_tpu_torch.ops import cuda_ica, cuda_merge, cuda_warp\n"
+    "t1 = time.perf_counter()\n"
+    "main()\n"
+    "print('TIMES', t1 - t0, time.perf_counter() - t1)\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hmsr_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('LAUNCHES ' + json.dumps({'K1': cuda_ica.block_match.launches,\n"
+    "    'K2': cuda_ica.ica_steps.launches, 'K3': cuda_ica.ica_fused.launches,\n"
+    "    'K4': cuda_warp.upscale_warp.launches, 'K5': cuda_merge.merge_accumulate.launches,\n"
+    "    \"K5'\": cuda_merge.merge_burst_accumulate.launches}))\n"
+    "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
+#: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
+#: takes the device chain)
+ROUTES = {"auto": ("auto", False, True), "device tonemapping": ("device", True, True),
+          "host": ("host", False, False),
+          "host tonemapping (smoothstep, no cv2)": ("host", True, False)}
+#: the host route each route is held to, at ROUTE_TOL
+ROUTE_PAIRS = {"host": "auto", "host tonemapping (smoothstep, no cv2)": "device tonemapping"}
+ROUTE_TOL = 1e-5
+
+
+def verbose_split(text):
+    """``{label: ms}`` from the stage times that ``verbose=2`` prints
+    (`` -- Device pipeline (align+merge)   :  123.4 milliseconds``)."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^ -- (.+?)\s+:\s+([0-9.]+) milliseconds$", text, re.M)}
+
+
+def split_text(split):
+    return ", ".join(f"{k} {v / 1000:.4f} s" for k, v in split.items())
+
+
+def png_header(path):
+    """``(width, height, bit depth, colour type)`` from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"),
+            head[24], head[25])
+
+
+@contextlib.contextmanager
+def without_cv2():
+    """``import cv2`` raises ``ImportError`` inside the block (the card's
+    machine has no cv2; this makes the route the same on one that has)."""
+    saved = sys.modules.get("cv2", False)
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def route_config(impl, tonemap):
+    c = configs.default_config()
+    c.scale = 2
+    c.verbose = 2
+    c.postprocessing.do_tonemapping = tonemap
+    c["tpu"] = {"finishing_impl": impl}
+    return c
+
+
+def phase_cli(path, out, shape):
+    """Phase 10 (b): the CLI in a subprocess on the card. Returns its wall
+    and split."""
+    env = {k: v for k, v in os.environ.items() if k != "HMSR_FORCE_CPU"}
+    cmd = [sys.executable, "-c", RUN_CLI, "--impath", path, "--outpath", out,
+           "scale=2", "verbose=2", "robustness.save_mask=True"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 10 CLI exited with {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    got = json.loads(re.search(r"^LAUNCHES (.+)$", res.stdout, re.M).group(1))
+    check_counts(got, BRIGHT_LAUNCHES["scan"], "phase 10 CLI")
+    h, w = shape
+    for name in (out, out[:-len(".png")] + ".rob.png"):
+        if png_header(name) != (2 * w, 2 * h, 8, 2):
+            raise AssertionError(f"phase 10 CLI: {name} has IHDR {png_header(name)}, "
+                                 f"expected {(2 * w, 2 * h, 8, 2)}")
+    split = verbose_split(res.stdout)
+    peak = int(re.search(r"^PEAK (\d+)$", res.stdout, re.M).group(1))
+    imports, in_main = map(float, re.search(r"^TIMES (\S+) (\S+)$", res.stdout,
+                                            re.M).groups())
+    log(f"phase 10 (b) CLI split (verbose=2): {split_text(split)} [{CARD}]")
+    log(f"phase 10 (b) CLI subprocess: exit 0, wall {wall:.4f} s: imports {imports:.4f} s, "
+        f"main() {in_main:.4f} s, the rest interpreter start and exit; launches {got}; "
+        f"peak memory {peak / 2**30:.3f} GiB; "
+        f"{os.path.basename(out)} {os.path.getsize(out)} B and its .rob.png are "
+        f"{2 * w}x{2 * h} 8-bit RGB; no JAX loaded [{CARD}]")
+    return dict(wall_s=wall, imports_s=imports, main_s=in_main, split_ms=split,
+                launches=got, peak_bytes=peak)
+
+
+def phase_routes(path, shape, device):
+    """Phase 10 (c): ``process`` on the bundle once per finishing route,
+    launch counts asserted; the host routes against their device routes."""
+    images, res = {}, {}
+    for name, (impl, tonemap, on_device) in ROUTES.items():
+        config = route_config(impl, tonemap)
+        if use_device_finishing(config) != on_device:
+            raise AssertionError(f"phase 10 route {name}: wrong finishing chain")
+        buf = io.StringIO()
+        ctx = without_cv2() if tonemap and not on_device else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()        # the burst, earlier images
+        reset_counts()
+        t0 = time.perf_counter()
+        with ctx, contextlib.redirect_stdout(buf):
+            image, _ = process(path, config, device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        check_counts(counts(), BRIGHT_LAUNCHES["scan"], f"phase 10 route {name}")
+        check_image(image, (2 * shape[0], 2 * shape[1], 3), f"phase 10 route {name}")
+        if image.dtype != torch.float32 or image.device.type != torch.device(device).type:
+            raise AssertionError(f"phase 10 route {name}: image {image.dtype} on "
+                                 f"{image.device}")
+        split = verbose_split(buf.getvalue())
+        images[name] = image
+        res[name] = dict(s=dt, split_ms=split, peak_bytes=peak)
+        log(f"phase 10 (c) process, finishing {name} "
+            f"({'device' if on_device else 'host'} chain): {dt:.4f} s; {split_text(split)}; "
+            f"peak memory {peak / 2**30:.3f} GiB above what the script held; launches as "
+            f"phase 4 [{CARD}]")
+    for host, dev in ROUTE_PAIRS.items():
+        d = float((images[host] - images[dev]).abs().max())
+        log(f"phase 10 (c) {host} against {dev}: max|d| {d:.3e} (held to {ROUTE_TOL})")
+        if not d <= ROUTE_TOL:
+            raise AssertionError(f"phase 10: the {host} route is {d:.3e} from the {dev} "
+                                 f"route")
+        res[host]["max_abs_err"] = d
+    return res
+
+
+def phase_graft(device):
+    """Phase 10 (d): the graft entry on the card, its launches as its
+    configuration implies, against the same entry on the CPU."""
+    fn, args = graft_entry.entry(device)
+    reset_counts()
+    image, _ = fn(*args)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts(got, expected_launches(args[0], graft_entry.small_config(),
+                                        len(args[1])), "phase 10 graft entry")
+    check_image(image, (256, 256, 3), "phase 10 graft entry")
+    fn_c, args_c = graft_entry.entry("cpu")
+    want, _ = fn_c(*args_c)
+    d = (image.cpu() - want).abs()[8:-8, 8:-8]
+    log(f"phase 10 (d) graft entry: image {tuple(image.shape)}, launches {got}; against "
+        f"the CPU: mean|d| {float(d.mean()):.3e}, max|d| {float(d.max()):.3e}")
+    if not (float(d.mean()) < 1e-4 and float(d.max()) < 1e-3):
+        raise AssertionError("phase 10 graft entry: the card and the CPU disagree")
+    return got
+
+
+def phase_unprocess(device, shape=(3000, 4000), seed=0):
+    """Phase 10 (e): the inverse ISP on the card against the CPU with the
+    same generators."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    jpg = torch.rand(shape + (3,), generator=g, device=device)
+    for _ in range(2):                  # the second call timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, meta = unprocess_isp(jpg, random.Random(seed), np.random.RandomState(seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    want, want_meta = unprocess_isp(jpg.cpu(), random.Random(seed),
+                                    np.random.RandomState(seed))
+    d = float((raw.cpu() - want).abs().max())
+    same = all(np.array_equal(meta[k], v) for k, v in want_meta.items())
+    log(f"phase 10 (e) unprocess_isp {tuple(jpg.shape)} float32 on the card: {dt:.4f} s "
+        f"(second call, host clock); against the CPU max|d| {d:.3e}; draws equal {same} "
+        f"[{CARD}]")
+    if not (d <= 1e-6 and same and raw.dtype == torch.float32):
+        raise AssertionError("phase 10 unprocess: the card and the CPU disagree")
+    return dict(s=dt, max_abs_err=d)
+
+
+def phase_unpack(device, n_pixels=12_000_000, seed=0):
+    """Phase 10 (f): RAW10 and RAW12 unpacking on the card, bit for bit
+    against the CPU."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    res = {}
+    for name, fn, per, nbytes_ in (("RAW10", unpack_raw10, 4, 5),
+                                   ("RAW12", unpack_raw12, 2, 3)):
+        packed = torch.randint(0, 256, (n_pixels // per * nbytes_,), generator=g,
+                               dtype=torch.uint8)
+        on_card = packed.to(device)
+        for _ in range(2):              # the second call timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(on_card, n_pixels)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        want = fn(packed, n_pixels)
+        same = got.dtype == torch.uint16 and torch.equal(got.cpu().to(torch.int32),
+                                                         want.to(torch.int32))
+        log(f"phase 10 (f) unpack {name}, {n_pixels} pixels on the card: {dt:.4f} s "
+            f"(second call, host clock); equal to the CPU bit for bit: {same} [{CARD}]")
+        if not same:
+            raise AssertionError(f"phase 10 unpack {name}: the card and the CPU differ")
+        res[name] = dt
+    return res
+
+
+def phase_entry(frames, device):
+    """Phase 10: the user's entry on the card (the module doc's list)."""
+    n_frames, h, w = frames.shape
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase10_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "burst.npz")
+        t0 = time.perf_counter()
+        np.savez(path, frames=frames.cpu().numpy(), cfa=CFA_RGGB,
+                 white_balance=np.asarray(WB), iso=100, alpha=ALPHA, beta=BETA)
+        log(f"phase 10 (a) burst {n_frames}x{h}x{w} written as {os.path.getsize(path)} B "
+            f"(np.savez) in {time.perf_counter() - t0:.4f} s")
+        res = {"cli": phase_cli(path, os.path.join(tmp, "out.png"), (h, w))}
+        res["routes"] = phase_routes(path, (h, w), device)
+    finally:
+        shutil.rmtree(tmp)
+    res["graft"] = phase_graft(device)
+    res["unprocess"] = phase_unprocess(device)
+    res["unpack"] = phase_unpack(device)
+    return res
+
+
 def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
     """The K5 or K5' entry's ``variants``: per variant of
     :data:`MERGE_VARIANTS`, its numbers per launch at the main path's shapes
@@ -1337,8 +1607,13 @@ def main():
     phase_switch_cells(frames, device)
     del frames
     phase_accuracy(device)
+    log("phase 10 the user's entry: the CLI, the finishing routes, the graft entry, "
+        "unprocess, unpacking")
+    frames = make_burst(3000, 4000, 20, 0, device)
+    phase_entry(frames, device)
+    del frames
     check_no_reference_imports()
-    log(f"phases 0-9 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-10 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():

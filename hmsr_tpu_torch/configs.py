@@ -1,10 +1,12 @@
-"""Configuration tree of the port: defaults, SNR-adaptive resolution and
-validation (twin of :mod:`hmsr_tpu.configs`).
+"""Configuration tree of the port: defaults, YAML files and dotted
+overrides, SNR-adaptive resolution and validation (twin of
+:mod:`hmsr_tpu.configs`).
 
 The defaults are those of the JAX package's ``configs/default.yaml`` without
 its ``tpu:`` implementation switches. The pipeline reads the tree by
 attribute and ``.get``, so a tree built by :mod:`hmsr_tpu.configs` works as
-well.
+well. ``load_yaml`` needs ``pyyaml``, imported where it is used: nothing else
+of the port reads YAML.
 """
 
 import copy
@@ -75,6 +77,48 @@ def _wrap(value):
             node[k] = v
         return node
     return value
+
+
+def load_yaml(path):
+    """Load a YAML file into a :class:`ConfigNode`; raises ``ImportError``
+    without ``pyyaml``."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("reading a YAML configuration needs the pyyaml "
+                          "package (import yaml), which is not installed") from e
+    with open(path, "r") as f:
+        data = yaml.safe_load(f)
+    return _wrap(data or {})
+
+
+def merge(base, override):
+    """Deep-merge ``override`` into a copy of ``base`` (override wins)."""
+    out = copy.deepcopy(_wrap(base))
+
+    def _merge(dst, src):
+        for k, v in src.items():
+            if k in dst and isinstance(dst[k], dict) and isinstance(v, dict):
+                _merge(dst[k], v)
+            else:
+                dst[k] = copy.deepcopy(v)
+
+    _merge(out, _wrap(override))
+    return out
+
+
+def update(config, dotted_key, value):
+    """Set ``config.a.b.c = value`` from the dotted string ``"a.b.c"``,
+    creating the intermediate nodes (the CLI's ``key=value`` overrides).
+    Returns ``config``."""
+    keys = dotted_key.split(".")
+    node = config
+    for k in keys[:-1]:
+        if k not in node or not isinstance(node[k], dict):
+            node[k] = ConfigNode()
+        node = node[k]
+    node[keys[-1]] = value
+    return config
 
 
 def default_config():

@@ -9,7 +9,8 @@ with XLA, not Pallas.
                       :mod:`hmsr_tpu_torch`);
 - devignette        : inverse cos^4 model;
 - tonemap           : the smoothstep ``3x^2 - 2x^3`` (OpenCV's Mertens
-                      fusion is the host chain's and is not ported);
+                      fusion is the host chain's,
+                      :mod:`hmsr_tpu_torch.finishing.raw2rgb`);
 - gamma             : clip + ``x^(1/2.2)``.
 """
 

@@ -11,11 +11,14 @@ accumulated robustness.
 Everything runs on one ``device``, the card unless the caller asks for the
 CPU: the burst is moved there once, and the image and the debug tensors
 are returned there. The image is (round(s H), round(s W), 3) with the
-finishing on, and has c channels without it (c = 1 in grey mode). What the port lacks raises
-``NotImplementedError`` before any work: the host finishing chain (OpenCV's
-Mertens fusion) and a device mesh. The median or Gauss frame-count denoiser
+finishing on, and has c channels without it (c = 1 in grey mode). The
+median or Gauss frame-count denoiser
 (``accumulated_robustness_denoiser.median`` / ``.gauss``) runs on the
-device after the pipeline, before the finishing.
+device after the pipeline, before the finishing. The finishing takes the
+JAX package's route (:func:`use_device_finishing`): the device chain, or the
+host chain (:mod:`..finishing.raw2rgb`, OpenCV's Mertens fusion), whose
+result comes back to ``device`` as float32. A device mesh (``tpu.mesh``)
+raises ``NotImplementedError`` before any work.
 """
 
 import os
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..configs import default_config, sanitize_config, update_snr_config
-from ..finishing import apply_orientation, make_postprocess_device
+from ..finishing import apply_orientation, make_postprocess_device, postprocess
 from ..finishing.denoise import frame_count_denoising_gauss, frame_count_denoising_median
 from ..io.burst import Burst, load_burst
 from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
@@ -46,7 +49,8 @@ def process(burst_path, config=None, device="cuda"):
     ``(image, debug)`` on ``device``."""
     if config is None:
         config = default_config()
-    burst = load_burst(burst_path, mode=config.mode)
+    burst = timer(load_burst, config.verbose >= 2, end_s=" -- Load burst")(
+        burst_path, mode=config.mode)
     return process_burst(burst, config, device)
 
 
@@ -71,28 +75,27 @@ def process_arrays(ref_raw, comp_raws, config=None, cfa=None,
 
 def check_process_supported(config):
     """Raise ``NotImplementedError`` for what the port's ``process_burst``
-    lacks (the pipeline checks its own slice)."""
+    lacks, a mesh of several devices (the pipeline checks its own slice)."""
     mesh = config.get("tpu", {}).get("mesh", None)
     if mesh and int(mesh[0]) * int(mesh[1]) > 1:
         raise NotImplementedError(f"tpu.mesh={list(mesh)}: sharding over several "
                                   f"devices is not ported")
-    pp = config.postprocessing
-    if pp.enabled:
-        # the JAX package's choice: the host chain unless "device" is asked
-        # for, or "auto" without a Mertens fusion to run (tonemapping with cv2)
-        impl = config.get("tpu", {}).get("finishing_impl", "auto")
-        needs_mertens = False
-        if pp.do_tonemapping and impl != "device":
-            try:
-                import cv2  # noqa: F401
-                needs_mertens = True
-            except ImportError:
-                pass
-        if not (impl == "device" or (impl == "auto" and not needs_mertens)):
-            raise NotImplementedError(
-                f"tpu.finishing_impl={impl!r} selects the host finishing chain "
-                f"(OpenCV Mertens fusion), which is not ported; "
-                f"tpu.finishing_impl='device' tonemaps with the smoothstep")
+
+
+def use_device_finishing(config):
+    """The JAX package's finishing route: ``tpu.finishing_impl`` "device"
+    takes the device chain, "auto" takes it unless tonemapping is on and cv2
+    imports (the Mertens fusion is OpenCV's, on the host), and anything else
+    ("host") takes the host chain."""
+    impl = config.get("tpu", {}).get("finishing_impl", "auto")
+    needs_mertens = False
+    if config.postprocessing.do_tonemapping and impl != "device":
+        try:
+            import cv2  # noqa: F401
+            needs_mertens = True
+        except ImportError:
+            pass
+    return impl == "device" or (impl == "auto" and not needs_mertens)
 
 
 def _trace_stages(burst, std_curve, diff_curve, config, device):
@@ -239,18 +242,22 @@ def process_burst(burst, config, device="cuda"):
                 torch.cuda.synchronize(device)
             getTime(t_dn, " -- Frame-count denoising")
 
-    # ---- finishing on the device
+    # ---- finishing: the device chain, or the host chain and back
     pp = config.postprocessing
     if pp.enabled:
+        on_device = use_device_finishing(config)
         if verbose_2:
-            print("-- Post processing image (device)")
-        fin = make_postprocess_device(
-            do_color_correction=pp.do_color_correction,
-            do_tonemapping=pp.do_tonemapping,
-            do_gamma=pp.do_gamma_correction,
-            sharpening_config=pp.sharpening,
-            do_devignette=pp.do_devignetting,
-            xyz2cam=burst.xyz2cam)
+            print(f"-- Post processing image ({'device' if on_device else 'host'})")
+        kw = dict(do_color_correction=pp.do_color_correction,
+                  do_tonemapping=pp.do_tonemapping, do_gamma=pp.do_gamma_correction,
+                  sharpening_config=pp.sharpening, do_devignette=pp.do_devignetting,
+                  xyz2cam=burst.xyz2cam)
+        if on_device:
+            fin = make_postprocess_device(**kw)
+        else:
+            def fin(rgb):
+                out = postprocess(rgb.cpu().numpy(), **kw)
+                return torch.as_tensor(out, dtype=DEFAULT_FLOAT, device=device)
         rgb = image.expand(-1, -1, 3) if image.shape[-1] == 1 else image
         image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(rgb)
 

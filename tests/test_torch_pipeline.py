@@ -8,7 +8,6 @@ mean|d| < 1e-4 and max|d| < 1e-3 on the interior [8:-8, 8:-8].
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -243,25 +242,19 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in res.stdout
 
 
-PROCESS_CHANGES = ["host_finishing", "auto_tonemap_with_cv2", "mesh"]
+PROCESS_CHANGES = ["mesh"]
 
 
 @pytest.mark.parametrize("change", ["fused_pipeline", "vmapped_pipeline"] + PROCESS_CHANGES)
-def test_unported_configurations_raise(change, monkeypatch):
+def test_unported_configurations_raise(change):
     """What the port lacks raises ``NotImplementedError``: in
     ``make_pipeline``, and in ``process_arrays`` before any work for what only
-    the process layer reads (the host finishing chain, a mesh)."""
+    the process layer reads (a mesh)."""
     config = small_config(128)
     if change == "vmapped_pipeline":
         config.tpu.pipeline = "vmapped"
     elif change == "fused_pipeline":
         config.tpu.pipeline = "fused"
-    elif change == "host_finishing":
-        config.tpu.finishing_impl = "host"
-    elif change == "auto_tonemap_with_cv2":      # "auto" picks the Mertens fusion
-        monkeypatch.setitem(sys.modules, "cv2", types.ModuleType("cv2"))
-        config.tpu.finishing_impl = "auto"
-        config.postprocessing.do_tonemapping = True
     elif change == "mesh":
         config.tpu.mesh = [2, 1]
     with pytest.raises(NotImplementedError):

@@ -6,6 +6,9 @@ CPU through its own non-Pallas twins (``tiled`` merge/ICA/warp), the port on
 CPU tensors through the plain versions of its kernels.
 """
 
+import builtins
+import sys
+
 import numpy as np
 import pytest
 
@@ -80,3 +83,20 @@ def kernel_counts():
             cuda_ica.ica_fused.launches, cuda_warp.upscale_warp.launches,
             cuda_merge.merge_accumulate.launches,
             cuda_merge.merge_burst_accumulate.launches)
+
+
+def block_imports(monkeypatch, *names):
+    """Make ``import`` of the given top-level modules raise ``ImportError``
+    for the rest of the test (the card's machine lacks some packages that
+    this host has)."""
+    real_import = builtins.__import__
+
+    def fake(name, *a, **k):
+        if name.split(".")[0] in names:
+            raise ImportError(f"{name} made unavailable by the test")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", fake)
+    for m in list(sys.modules):
+        if m.split(".")[0] in names:
+            monkeypatch.delitem(sys.modules, m)
