@@ -102,9 +102,27 @@ and power limit:
    (e) ``unprocess_isp`` on a 3000x4000x3 image on the card against the
    CPU with the same generators (1e-6); (f) RAW10 and RAW12 unpacking of
    12 MP of random bytes on the card, bit for bit against the CPU.
+11. the multi-device path on ``torch.distributed`` (:func:`phase_sharded`),
+   every rank on this one card: (a) K5 into 2, 3 and 4 bands of whole tile
+   rows (the banded branch, ``row_offset``) at 3000x4000 x2, Ts=16, 32 and
+   64 and the other three variants at Ts=16: the bands concatenated equal
+   one full launch bit for bit, each band within 1e-5 relative of the
+   banded plain version, each band's device time beside the full launch's;
+   (b) and (c) in one spawn of 4 gloo ranks: the 512x512 8-frame slice on
+   the meshes (2, 2), (4, 1) and (1, 4) against the card's single-device
+   scan pipeline (phase 3's bounds, flows 1e-2, acc_r 1e-5, every rank the
+   same image), then the phase 4 burst on the mesh (2, 2), warm-up + 3
+   runs, per rank its walls, peak memory and launch counts (K5 10, every
+   one into its band), the image against phase 4's under phase 3's bounds;
+   the walls are of one card time-sliced between 4 processes, not of a
+   scaling over cards; (d) one NCCL rank: the mesh (1, 1) on the slice equal
+   to the scan pipeline bit for bit, and the process layer's broadcast of
+   the Monte-Carlo curves on the NCCL group; (e)
+   ``graft_entry.dryrun_multichip(4)`` over gloo.
 
 The line before the last is a JSON object with one entry per kernel (K5
-and K5' with their four variants under ``variants``); the last line is
+and K5' with their four variants under ``variants``, K5 with its banded
+branch under ``banded``); the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package ``hmsr_tpu``.
 """
@@ -205,6 +223,7 @@ def check_no_reference_imports():
 def reset_counts():
     for _, fn, _, _ in KERNELS.values():
         fn.launches = 0
+    cuda_merge.merge_accumulate.band_launches = 0
 
 
 def sass_counts(bases):
@@ -889,7 +908,7 @@ def phase_full(frames, device, n_runs=3):
     check_image(image, (2 * h, 2 * w, 3), "phase 4")
     peak = torch.cuda.max_memory_allocated()
     res = dict(min_s=min(times), median_s=statistics.median(times),
-               peak_bytes=peak, launches=launches)
+               peak_bytes=peak, launches=launches, image=image.cpu())
     log(f"phase 4 {len(frames)}x{h}x{w} x{config.scale}: min {res['min_s']:.4f} s, "
         f"median {res['median_s']:.4f} s of {n_runs}; peak memory "
         f"{peak / 2**30:.3f} GiB; launches per run {launches}; interior finite "
@@ -1542,6 +1561,337 @@ def phase_entry(frames, device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device path on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: band counts of phase 11 (a): ceil(out_h / B) is 188, 94 and 47 at Ts=16,
+#: 32 and 64, so that 3 (and 4 at Ts=16) do not divide it
+BAND_COUNTS = (2, 3, 4)
+#: the meshes of phase 11 (b) on the 512^2 slice, in 4 gloo ranks
+SLICE_MESHES = ((2, 2), (4, 1), (1, 4))
+FULL_MESH = (2, 2)
+
+
+def check_banded_merge(device, raw_shape, Ts, rng, variant, time_plain):
+    """Phase 11 (a): K5 into 2, 3 and 4 bands (whole tile rows, the
+    sharded pipeline's geometry) on random accumulators: the bands,
+    concatenated, equal one full launch bit for bit, and each band is within
+    1e-5 relative of the banded plain version; each band's device time
+    alone beside the full launch's. Returns the rows of the 2-band run (per
+    band: ms, plain ms, bound) and the largest error."""
+    H, W = raw_shape
+    s = 2
+    grey, iso = MERGE_VARIANTS[variant]
+    n_ch = 1 if grey else 3
+    config = burst_config(raw_shape, 40)
+    config.mode = "grey" if grey else "bayer"
+    comp = torch.as_tensor(np.clip(blocky_scene(rng, H, W, 4) + 0.02 * rng.randn(H, W),
+                                   0, 1).astype(np.float32), device=device)
+    covs = estimate_kernels(comp, config).contiguous()
+    flow = random_flow(rng, H, W, Ts, device)
+    r = torch.as_tensor(rng.rand(H, W).astype(np.float32), device=device)
+    out_h, out_w = s * H, s * W
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.randint(1 << 30)))
+    base = torch.rand((2, n_ch, out_h, out_w), generator=gen, device=device)
+    args = (comp, flow, covs, r)
+    kw = dict(grey=grey, iso=iso)
+    full = base.clone()
+    cuda_merge.merge_accumulate(*args, full[0], full[1], CFA_RGGB, Ts, s, **kw)
+    scratch = base.clone()
+    t_full = timed(lambda: cuda_merge.merge_accumulate(*args, scratch[0], scratch[1],
+                                                       CFA_RGGB, Ts, s, **kw))
+    del scratch
+    frame_bytes = nbytes(comp, flow, r) + (0 if iso else nbytes(covs))
+    B = Ts * s
+    tag = f"{variant} Ts={Ts} x{s}"
+    worst, rows2 = 0.0, []
+    for n_bands in BAND_COUNTS:
+        rows = -(-(-(-out_h // B)) // n_bands) * B
+        bands, times, errs = [], [], []
+        for sp in range(n_bands):
+            off = sp * rows
+            keep = max(0, min(rows, out_h - off))
+            band = torch.zeros(2, n_ch, rows, out_w, device=device)
+            band[:, :, :keep] = base[:, :, off:off + keep]
+            plain = band.clone()
+            cuda_merge.merge_accumulate(*args, band[0], band[1], CFA_RGGB, Ts, s, **kw,
+                                        row_offset=off)
+            cuda_merge.merge_plain(*args, plain[0], plain[1], CFA_RGGB, Ts, s, **kw,
+                                   row_offset=off)
+            err = max(nan_max_abs(band[k], plain[k])
+                      / max(float(plain[k].abs().max()), 1e-30) for k in range(2))
+            errs.append(err)
+            scratch = band.clone()
+            tk = timed(lambda: cuda_merge.merge_accumulate(
+                *args, scratch[0], scratch[1], CFA_RGGB, Ts, s, **kw, row_offset=off))
+            ms_p = timed(lambda: cuda_merge.merge_plain(
+                *args, plain[0], plain[1], CFA_RGGB, Ts, s, **kw, row_offset=off),
+                n=1, hold=False).ms if time_plain and n_bands == 2 else float("nan")
+            share = keep / out_h
+            bnd = bound(2 * nbytes(band[:, :, :keep]) + share * frame_bytes,
+                        keep * out_w * merge_flops(iso))
+            times.append(tk.ms)
+            if n_bands == 2:
+                rows2.append(dict(ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p,
+                                  bound_ms=bnd[0], bound_by=bnd[1], err=err))
+            bands.append(band)
+            del scratch, plain
+        cat = torch.cat(list(bands), 2)
+        same = torch.equal(cat[:, :, :out_h], full) and not cat[:, :, out_h:].any()
+        worst = max(worst, *errs)
+        log(f"  K5 banded {tag}, {n_bands} bands of {rows} HR rows: against one full "
+            f"launch bit-identical: {same}; against the banded plain version rel "
+            f"max|d| {max(errs):.3e}; kernel per band "
+            + ", ".join(f"{t:.4f}" for t in times)
+            + f" ms (sum {sum(times):.4f} ms) against the full launch {t_full.ms:.4f} ms "
+            f"[{CARD}]")
+        if not same or max(errs) > 1e-5:
+            raise AssertionError(f"K5 banded {tag} {n_bands} bands: bit-identical "
+                                 f"{same}, relative error {max(errs):.3e}")
+        del cat, bands
+    return dict(rows2=rows2, err=worst, full_ms=t_full.ms)
+
+
+def sharded_launches(ref, config, mesh, n_padded):
+    """The launches of one rank's run of the sharded pipeline: those of its
+    ``n_padded / n_frames`` frames (:func:`expected_launches`), no K5 when
+    its band starts past the image."""
+    from hmsr_tpu_torch.parallel.sharded import band_geometry
+    expect = expected_launches(ref, config, n_padded // mesh.n_frames)
+    rows = band_geometry(config, tuple(ref.shape), mesh.n_space)
+    if mesh.space * rows >= accum_shape(config, tuple(ref.shape))[1]:
+        expect["K5"] = 0
+    return expect
+
+
+def band_counts():
+    return cuda_merge.merge_accumulate.band_launches
+
+
+def slice_config(size=512):
+    config = burst_config((size, size), 40, debug=True)
+    config.robustness.save_mask = True
+    return config
+
+
+def image_sum(image):
+    return float(torch.nan_to_num(image).double().sum())
+
+
+def sharded_rank(rank, slice_meshes, full_mesh, n_runs):
+    """A rank of phase 11 (b) and (c), all on the one card: the 512^2 slice
+    on every mesh of ``slice_meshes``, then the 20x12 MP burst on
+    ``full_mesh``, warm-up + ``n_runs`` runs. Launch counts checked per run;
+    returns what the parent compares (rank 0 its images, every rank their
+    sums)."""
+    from hmsr_tpu_torch.parallel import make_mesh, make_sharded_pipeline, pad_frames
+    import torch.distributed as dist
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    _build.library()
+    std, diff = affine_curves()
+    out = {"slice": {}}
+    frames = make_burst(512, 512, 8, 2, device)
+    config = slice_config()
+    for shape in slice_meshes:
+        mesh = make_mesh(*shape)
+        pipe = make_sharded_pipeline(config, CFA_RGGB, WB, mesh, device)
+        padded, weights = pad_frames(frames[1:], shape[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        image, acc_r, flows, rmaps = pipe(frames[0], padded, weights, std, diff)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(got, sharded_launches(frames[0], config, mesh, len(padded)),
+                     f"phase 11 (b) rank {rank} mesh {shape}")
+        rec = dict(launches=got, band_launches=band_counts(), comm=pipe.comm,
+                   sum=image_sum(image))
+        if rank == 0:
+            rec.update(image=image.cpu(), acc_r=acc_r.cpu(), flows=flows.cpu())
+        out["slice"][shape] = rec
+    del frames, padded, image
+    frames = make_burst(3000, 4000, 20, 0, device)
+    config = burst_config((3000, 4000), burst_snr(frames[0], std))
+    ref = frames[0].clone()
+    padded, weights = pad_frames(frames[1:], full_mesh[0])
+    del frames
+    mesh = make_mesh(*full_mesh)
+    pipe = make_sharded_pipeline(config, CFA_RGGB, WB, mesh, device)
+    expect = sharded_launches(ref, config, mesh, len(padded))
+    walls, runs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_runs + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        image, acc_r = pipe(ref, padded, weights, std, diff)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = counts()
+        check_counts(got, expect, f"phase 11 (c) rank {rank} run {i}")
+        if band_counts() != got["K5"]:
+            raise AssertionError(f"phase 11 (c) rank {rank} run {i}: {band_counts()} of "
+                                 f"{got['K5']} K5 launches into the band")
+        runs.append(dict(launches=got, band_launches=band_counts(), comm=dict(pipe.comm)))
+    out["full"] = dict(walls=walls, runs=runs, peak=torch.cuda.max_memory_allocated(),
+                       sum=image_sum(image), n_padded=len(padded),
+                       frames=(mesh.frame * len(padded) // mesh.n_frames,
+                               (mesh.frame + 1) * len(padded) // mesh.n_frames),
+                       band=mesh.space)
+    if rank == 0:
+        out["full"].update(image=image.cpu(), acc_r=acc_r.cpu())
+    return out
+
+
+def nccl_rank(rank):
+    """Phase 11 (d), one NCCL rank: the (1, 1) mesh on the 512^2 slice
+    against the scan pipeline, and the process layer's broadcast of the
+    Monte-Carlo curves on the NCCL group against a draw of its own."""
+    import torch.distributed as dist
+    from hmsr_tpu_torch.models.process import broadcast_mc_curves
+    from hmsr_tpu_torch.noise import run_fast_MC
+    from hmsr_tpu_torch.parallel import make_mesh, make_sharded_pipeline, pad_frames
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    _build.library()
+    std, diff = affine_curves()
+    frames = make_burst(512, 512, 8, 2, device)
+    config = slice_config()
+    mesh = make_mesh(1, 1)
+    pipe = make_sharded_pipeline(config, CFA_RGGB, WB, mesh, device)
+    torch.cuda.synchronize()
+    reset_counts()
+    image, acc_r, flows, _ = pipe(frames[0], *pad_frames(frames[1:], 1), std, diff)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts(got, sharded_launches(frames[0], config, mesh, len(frames) - 1),
+                 "phase 11 (d)")
+    want, debug = make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:],
+                                                              std, diff)
+    mc = broadcast_mc_curves(ALPHA, BETA, device)
+    mc_want = run_fast_MC(ALPHA, BETA, device=device)
+    return dict(backend=dist.get_backend(), launches=got,
+                image_equal=torch.equal(torch.nan_to_num(image), torch.nan_to_num(want)),
+                max_d=nan_max_abs(image, want),
+                acc_equal=torch.equal(acc_r, debug["accumulated_robustness"]),
+                flows_equal=torch.equal(flows, debug["flow"]),
+                mc_equal=all(np.array_equal(a, b) for a, b in zip(mc, mc_want)))
+
+
+def phase_sharded(device, full_image):
+    """Phase 11 (the module doc's list). ``full_image``: phase 4's image on
+    the host. Returns K5's ``banded`` entry of the kernels line."""
+    from hmsr_tpu_torch.parallel import spawn_ranks
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(11)
+    log("phase 11 (a) K5 banded against K5 full (3000x4000 x2)")
+    banded = {}
+    for Ts in (16, 32, 64):
+        banded[("bayer-steerable", Ts)] = check_banded_merge(
+            device, (3000, 4000), Ts, rng, "bayer-steerable", Ts == MAIN_TS)
+    for variant in list(MERGE_VARIANTS)[1:]:
+        banded[(variant, MAIN_TS)] = check_banded_merge(device, (3000, 4000), MAIN_TS,
+                                                        rng, variant, False)
+    torch.cuda.empty_cache()
+
+    # (b) and (c): one spawn of 4 gloo ranks on the card
+    std, diff = affine_curves()
+    frames = make_burst(512, 512, 8, 2, device)
+    config = slice_config()
+    want, want_dbg = make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:],
+                                                                 std, diff)
+    want, want_acc, want_flow = want.cpu(), want_dbg["accumulated_robustness"].cpu(), \
+        want_dbg["flow"].cpu()
+    del frames, want_dbg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(sharded_rank, 4, args=(SLICE_MESHES, FULL_MESH, 3), backend="gloo",
+                      threads=2)
+    log(f"phase 11 (b)+(c) 4 gloo ranks on one card: spawn to last result "
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    n_cmp = 7
+    for shape in SLICE_MESHES:
+        r0 = res[0]["slice"][shape]
+        d_img = (r0["image"] - want).abs()[8:-8, 8:-8]
+        par = dict(flow_max=float((r0["flows"][:n_cmp] - want_flow).abs().max()),
+                   img_mean=float(d_img.mean()), img_max=float(d_img.max()))
+        d_acc = float((r0["acc_r"] - want_acc).abs().max())
+        sums = {r["slice"][shape]["sum"] for r in res}
+        log(f"phase 11 (b) mesh {shape}: flow max|d| {par['flow_max']:.3e}, image "
+            f"mean|d| {par['img_mean']:.3e} max|d| {par['img_max']:.3e}, acc_r max|d| "
+            f"{d_acc:.3e}; every rank's image the same: {len(sums) == 1}; launches per "
+            "rank " + "; ".join(f"{i}: {r['slice'][shape]['launches']} (K5 into a band "
+                                f"{r['slice'][shape]['band_launches']})"
+                                for i, r in enumerate(res))
+            + f"; rank 0's collectives {r0['comm']}")
+        if not (par["flow_max"] < 1e-2 and par["img_mean"] < 1e-4 and par["img_max"] < 1e-3
+                and d_acc <= 1e-5 and len(sums) == 1):
+            raise AssertionError(f"phase 11 (b) mesh {shape}: {par}, acc_r max|d| "
+                                 f"{d_acc:.3e}, image sums {sums}")
+    full = [r["full"] for r in res]
+    d_img = (full[0]["image"] - full_image).abs()[8:-8, 8:-8]
+    d_mean, d_max = float(d_img.mean()), float(d_img.max())
+    sums = {f["sum"] for f in full}
+    for i, f in enumerate(full):
+        timed_walls = f["walls"][1:]
+        log(f"phase 11 (c) rank {i} (frames {f['frames'][0]}..{f['frames'][1] - 1} of "
+            f"{f['n_padded']} padded, band {f['band']}): walls warm-up "
+            f"{f['walls'][0]:.4f} s, timed " + ", ".join(f"{w:.4f}" for w in timed_walls)
+            + f" s (median {statistics.median(timed_walls):.4f} s); peak memory "
+            f"{f['peak'] / 2**30:.3f} GiB; launches per run {f['runs'][-1]['launches']} "
+            f"(K5 into a band {f['runs'][-1]['band_launches']}); collectives "
+            f"{f['runs'][-1]['comm']} [{CARD}; one card time-sliced between 4 "
+            "processes: no scaling over cards]")
+    log(f"phase 11 (c) mesh {FULL_MESH} image against phase 4's single-device image: "
+        f"interior mean|d| {d_mean:.3e} max|d| {d_max:.3e}; every rank's image the "
+        f"same: {len(sums) == 1}")
+    if not (d_mean < 1e-4 and d_max < 1e-3) or len(sums) != 1:
+        raise AssertionError(f"phase 11 (c): mean|d| {d_mean:.3e}, max|d| {d_max:.3e}, "
+                             f"image sums {sums}")
+    del res
+
+    # (d) NCCL at world size 1
+    nc = spawn_ranks(nccl_rank, 1, backend="nccl")[0]
+    log(f"phase 11 (d) {nc['backend']} world size 1, mesh (1, 1) on the slice: image "
+        f"equal to the scan pipeline's {nc['image_equal']} (max|d| {nc['max_d']:.3e}), "
+        f"acc_r equal {nc['acc_equal']}, flows equal {nc['flows_equal']}; launches "
+        f"{nc['launches']}; Monte-Carlo curves broadcast on the NCCL group equal to "
+        f"a draw of their own {nc['mc_equal']}")
+    if not (nc["backend"] == "nccl" and nc["image_equal"] and nc["acc_equal"]
+            and nc["flows_equal"] and nc["mc_equal"]):
+        raise AssertionError(f"phase 11 (d): {nc}")
+
+    # (e) the dry run
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4, device="cuda", backend="gloo")
+    log(f"phase 11 (e) graft_entry.dryrun_multichip(4) over gloo on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 11 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+
+    main = banded[("bayer-steerable", MAIN_TS)]
+    per_band = main["rows2"]
+    return {
+        "name": "K5 banded branch (accumulators of a band of tile rows at row_offset)",
+        "route": "cuda", "source": "hmsr_tpu_torch/csrc/merge.cu",
+        "replaces": "hmsr_tpu/ops/pallas_merge.py:382",
+        "launches": full[0]["runs"][-1]["band_launches"],
+        "launches_in": f"rank 0 of the {FULL_MESH} full-size run (phase 11 (c)), per run; "
+                       "every rank: " + ", ".join(str(f["runs"][-1]["band_launches"])
+                                                   for f in full),
+        "max_abs_err": max(b["err"] for b in banded.values()),
+        "ms": sum(b["ms"] for b in per_band), "host_us": sum(b["host_us"] for b in per_band),
+        "ms_per_band": [b["ms"] for b in per_band],
+        "full_launch_ms": main["full_ms"],
+        "plain_ms": sum(b["plain_ms"] for b in per_band),
+        "bound_ms": sum(b["bound_ms"] for b in per_band),
+        "bound_by": max(per_band, key=lambda b: b["bound_ms"])["bound_by"],
+        "library_ms": None}
+
+
 def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
     """The K5 or K5' entry's ``variants``: per variant of
     :data:`MERGE_VARIANTS`, its numbers per launch at the main path's shapes
@@ -1586,7 +1936,7 @@ def main():
     stats = phase_kernels(device, (3000, 4000))
     variant_launches = phase_slice(device)
     frames = make_burst(3000, 4000, 20, 0, device)
-    phase_full(frames, device)
+    full_image = phase_full(frames, device)["image"]
     launches = counts()
     proc = phase_process(frames, device)
     launches["K5'"] = proc["chunked"]["launches"]["K5'"]
@@ -1612,8 +1962,11 @@ def main():
     frames = make_burst(3000, 4000, 20, 0, device)
     phase_entry(frames, device)
     del frames
+    log("phase 11 the multi-device path on torch.distributed (every rank on this card)")
+    banded = phase_sharded(device, full_image)
+    del full_image
     check_no_reference_imports()
-    log(f"phases 0-10 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-11 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
@@ -1645,6 +1998,8 @@ def main():
                                                       False)]["registers"]
             entry["variants"] = merge_variant_entries(key, stats[key], ptxas, entry,
                                                       variant_launches)
+        if key == "K5":
+            entry["banded"] = banded
         entries.append(entry)
     # the probes: not on the path (0 launches there); P1 at its largest grid
     for key, row in (("P1", p1["empty"][-1]), ("P2", p2[-1])):

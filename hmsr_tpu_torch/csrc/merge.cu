@@ -21,6 +21,15 @@
 // covariance work, so it stays nearer the instruction floor; the isotropic
 // kernel drops the covariance window, interpolation and inverse.
 //
+// Banded accumulators (the branch of pallas_merge.py:merge_pallas with a
+// row_offset, lines 290-299 and 382-430, that parallel/sharded.py runs for
+// its space axis): num/den may hold a band of `acc_h` HR rows whose first row
+// is global row t0*B (B = Ts*s). A block of band tile row ty works on global
+// tile row t0 + ty: it stages that row's frame, flow, covariance and
+// robustness windows and writes local rows. Tile rows past the image and HR
+// rows past the global out_h contribute nothing; t0 = 0 with acc_h = out_h is
+// the full accumulator.
+//
 // Design: one block of MERGE_THREADS threads per HR tile, or per band of
 // `rows` HR rows of one (MERGE_PPT pixels per thread; merge_layout in
 // common.cuh). Each thread first loads its accumulators (their latency
@@ -41,16 +50,19 @@ __global__ void __launch_bounds__(MERGE_THREADS)
                  const float* __restrict__ flow, int fnx,
                  const float* __restrict__ covs, int gh, int gw,
                  const float* __restrict__ rob, float* __restrict__ num,
-                 float* __restrict__ den, int out_h, int out_w, int Ts, int s,
-                 MergeCfa cfa, int rows, int bands) {
+                 float* __restrict__ den, int out_h, int out_w, int t0,
+                 int acc_h, int Ts, int s, MergeCfa cfa, int rows, int bands) {
   constexpr int NCH = merge_planes(G);
   extern __shared__ __align__(16) float smem[];
   const int B = Ts * s;
   const int tx = blockIdx.x;
-  const int ty = blockIdx.y / bands;
-  const int r0 = (blockIdx.y - ty * bands) * rows;
+  const int ty_band = blockIdx.y / bands;
+  const int ty = t0 + ty_band;  // the global tile row
+  const int r0 = (blockIdx.y - ty_band * bands) * rows;
   const int nr = min(rows, B - r0);
-  const size_t plane = (size_t)out_h * out_w;
+  // the accumulator rows that hold rows of the image
+  const int band_h = min(acc_h, out_h - t0 * B);
+  const size_t plane = (size_t)acc_h * out_w;
   // the thread's accumulators are loaded first: their latency overlaps
   // the staging
   int pr[MERGE_PPT], pc[MERGE_PPT];
@@ -58,7 +70,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   float n[MERGE_PPT][NCH], d[MERGE_PPT][NCH];
 #pragma unroll
   for (int k = 0; k < MERGE_PPT; ++k) {
-    merge_thread_pixel(k, B, nr, ty * B + r0, tx * B, out_h, out_w, pr[k],
+    merge_thread_pixel(k, B, nr, ty_band * B + r0, tx * B, band_h, out_w, pr[k],
                        pc[k], po[k]);
     for (int ch = 0; ch < NCH; ++ch) {
       n[k][ch] = pr[k] >= 0 ? num[ch * plane + po[k]] : 0.0f;
@@ -92,7 +104,7 @@ struct MergeLaunch {
   const float* rob;
   float* num;
   float* den;
-  int out_h, out_w, Ts, s, cfa;
+  int out_h, out_w, t0, acc_h, Ts, s, cfa;
   cudaStream_t stream;
 
   template <int G, int ISO>
@@ -102,26 +114,32 @@ struct MergeLaunch {
         merge_launch_setup<G, ISO>(merge_kernel<G, ISO>, Ts, s, 1, L);
     if (e != cudaSuccess) return (int)e;
     const int B = Ts * s;
-    const dim3 grid((out_w + B - 1) / B, (out_h + B - 1) / B * L.bands);
+    // the band's tile rows that hold rows of the image
+    const int nb = min((acc_h + B - 1) / B, (out_h + B - 1) / B - t0);
+    if (nb <= 0) return (int)cudaGetLastError();
+    const dim3 grid((out_w + B - 1) / B, nb * L.bands);
     merge_kernel<G, ISO><<<grid, MERGE_THREADS, L.smem_bytes, stream>>>(
-        comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, Ts,
-        s, merge_cfa_masks(cfa), L.rows, L.bands);
+        comp, H, W, flow, fnx, covs, gh, gw, rob, num, den, out_h, out_w, t0,
+        acc_h, Ts, s, merge_cfa_masks(cfa), L.rows, L.bands);
     return (int)cudaGetLastError();
   }
 };
 
 // cfa: the 2x2 pattern packed as in merge_cfa_masks (read in Bayer mode
 // only); grey: one accumulator plane and covariances on the raw grid; iso:
-// the isotropic kernel (covs unread).
+// the isotropic kernel (covs unread). out_h is the image's HR height; num
+// and den hold acc_h HR rows from global row t0 * Ts * s (t0 = 0, acc_h =
+// out_h: the whole image).
 extern "C" int hmsr_merge(const float* comp, int H, int W, const float* flow,
                           int fnx, const float* covs, int gh, int gw,
                           const float* rob, float* num, float* den, int out_h,
-                          int out_w, int Ts, int s, int cfa, int grey, int iso,
-                          void* stream) {
-  if (out_h <= 0 || out_w <= 0) return (int)cudaGetLastError();
-  MergeLaunch launch{comp, H,     W,     flow, fnx, covs, gh,  gw,
-                     rob,  num,   den,   out_h, out_w, Ts,  s,   cfa,
-                     (cudaStream_t)stream};
+                          int out_w, int t0, int acc_h, int Ts, int s, int cfa,
+                          int grey, int iso, void* stream) {
+  if (out_h <= 0 || out_w <= 0 || acc_h <= 0) return (int)cudaGetLastError();
+  if (t0 < 0) return (int)cudaErrorInvalidValue;
+  MergeLaunch launch{comp, H,   W,     flow,  fnx,   covs, gh, gw,
+                     rob,  num, den,   out_h, out_w, t0,   acc_h, Ts,
+                     s,    cfa, (cudaStream_t)stream};
   return merge_dispatch(grey, iso, launch);
 }
 

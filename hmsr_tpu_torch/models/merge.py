@@ -40,10 +40,13 @@ def lr_positions(hr, scale, tile_size):
     return lr, tile.to(torch.int64), lr.to(torch.int64)
 
 
-def merge(comp_img, flow, covs, r, num, den, cfa_pattern, config, band_rows=512):
+def merge(comp_img, flow, covs, r, num, den, cfa_pattern, config, band_rows=512,
+          row_offset=0):
     """Accumulate a non-reference frame into ``num``/``den`` (c, round(s H),
     round(s W)) in place; returns the pair. ``flow``: (ny, nx, 2) per raw
-    tile; ``covs``: (3, gh, gw); ``r``: (H, W) robustness."""
+    tile; ``covs``: (3, gh, gw); ``r``: (H, W) robustness. With
+    ``row_offset`` the accumulators are a band of HR rows from that global
+    row (the sharded pipeline's space axis)."""
     grey, iso = merge_variant(config)
     cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
     lr_h, lr_w = comp_img.shape
@@ -58,7 +61,8 @@ def merge(comp_img, flow, covs, r, num, den, cfa_pattern, config, band_rows=512)
     rj = rj.clamp(max=lr_w - 1)
     for y0 in range(0, out_h, band_rows):
         y1 = min(y0 + band_rows, out_h)
-        lr_y, py, ri = lr_positions(torch.arange(y0, y1, device=dev)[:, None], scale, ts)
+        lr_y, py, ri = lr_positions(
+            torch.arange(row_offset + y0, row_offset + y1, device=dev)[:, None], scale, ts)
         py = py.clamp(0, fh - 1)
         ri = ri.clamp(max=lr_h - 1)
         lr_mov_x = lr_x + flow[py, px, 0]

@@ -13,6 +13,8 @@
 Both take every variant of the JAX package's merge: Bayer or grey mode
 (``mode``), the steerable or the isotropic kernel (``merging.kernel``), and
 for the reference frame the accumulated-robustness denoiser (``acc_rob``).
+Both also take a band of the accumulators (``row_offset``: ``num``/``den``
+hold global HR rows ``row_offset ..``), the sharded pipeline's space axis.
 """
 
 import numpy as np
@@ -45,15 +47,17 @@ def merge_variant(config):
     return config.mode != "bayer", config.merging.kernel == "iso"
 
 
-def merge_tiled(comp_img, flow, covs, r, num, den, cfa_pattern, config):
+def merge_tiled(comp_img, flow, covs, r, num, den, cfa_pattern, config,
+                row_offset=0):
     """Accumulate a non-reference frame into (num, den) in place; returns
-    the pair."""
+    the pair. With ``row_offset`` (a multiple of ``Ts*s``) they are a band
+    of global HR rows from there (K5's banded branch)."""
     s = check_merge_config(config)
     grey, iso = merge_variant(config)
     return merge_accumulate(comp_img.contiguous(), flow.to(DEFAULT_FLOAT).contiguous(),
                             covs.contiguous(), r.contiguous(), num, den,
                             cfa_pattern, int(config.block_matching.tuning.tile_size), s,
-                            grey, iso)
+                            grey, iso, row_offset)
 
 
 def _interp_cov(covs, kmap_i, kmap_j):
@@ -92,7 +96,7 @@ def _inverse(cc):
 
 
 def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
-                    band_rows=512):
+                    band_rows=512, row_offset=0):
     """Accumulate the reference frame into (num, den) (c, round(s H),
     round(s W)) in place, at any scale s; returns the pair.
 
@@ -106,6 +110,10 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     pixel takes them all and divides ``z`` by ``merge.max_multiplier`` (else
     3x3 taps, ``z`` as it is), and where it is below the count the
     reference's sums replace num/den instead of adding to them.
+
+    ``num``/``den`` hold global HR rows ``row_offset ..`` (the whole image
+    by default); rows past the image are evaluated as any other, and
+    cropped by the caller.
     """
     grey, iso = merge_variant(config)
     cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
@@ -123,7 +131,8 @@ def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
     kmap_x = pos_x if grey else (pos_x - 0.5) / 2.0
     for y0 in range(0, out_h, band_rows):
         y1 = min(y0 + band_rows, out_h)
-        pos_y = torch.arange(y0, y1, dtype=DEFAULT_FLOAT, device=dev)[:, None] / s_dev
+        pos_y = torch.arange(row_offset + y0, row_offset + y1, dtype=DEFAULT_FLOAT,
+                             device=dev)[:, None] / s_dev
         center_y = torch.round(pos_y).long()
         inv = None
         if not iso:

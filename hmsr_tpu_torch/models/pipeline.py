@@ -25,7 +25,10 @@ half-resolution grey image and each flow is moved to the raw tile grid
 
 Everything runs on the one ``device`` given to :func:`make_pipeline`; there
 is no fallback to another device or to another implementation: whatever the
-slice lacks raises ``NotImplementedError``.
+slice lacks raises ``NotImplementedError``. The stages of the loop
+(:func:`init_reference`, :func:`frame_step`, :func:`merge_reference`,
+:func:`normalize_image`) are shared with the sharded pipeline
+(:mod:`hmsr_tpu_torch.parallel.sharded`).
 """
 
 import numpy as np
@@ -108,6 +111,46 @@ def _as_tensor(x, device):
                            dtype=DEFAULT_FLOAT, device=device)
 
 
+def init_reference(ref_img, curves, config, cfa_pattern, white_balance):
+    """The reference init: ``(align_state, ref_stats)``, the alignment
+    state of the reference's grey image and its robustness statistics."""
+    align_state = init_alignment(to_grey(ref_img, config), config)
+    ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
+                                config)
+    return align_state, ref_stats
+
+
+def frame_step(frame, align_state, ref_stats, config, cfa_pattern, white_balance,
+               weight=None):
+    """The analysis of one compared frame: ``(flow, r, covs)``, its flow on
+    the raw tile grid (grey, align, the decimating grey's conversion), its
+    robustness map (times ``weight`` where one is given: the sharded
+    pipeline's zero-weight padding frames) and its kernel covariances."""
+    flow = to_raw_flow(align(align_state, to_grey(frame, config), config),
+                       frame.shape, config)
+    r = compute_robustness(frame, ref_stats, flow, cfa_pattern, white_balance,
+                           config)
+    if weight is not None:
+        r = r * weight
+    return flow, r, estimate_kernels(frame, config)
+
+
+def merge_reference(ref_img, num, den, cfa_pattern, config, acc_r=None,
+                    row_offset=0):
+    """The reference frame's merge into (num, den) in place, with the
+    accumulated-robustness denoiser when it is enabled (``acc_r``)."""
+    denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
+    return merge_ref_tiled(ref_img, estimate_kernels(ref_img, config), num, den,
+                           cfa_pattern, config, acc_rob=acc_r if denoise else None,
+                           row_offset=row_offset)
+
+
+def normalize_image(num, den):
+    """The border-strip refill and divide of the whole accumulators: the
+    ``(round(s H), round(s W), c)`` image."""
+    return normalize_accum(num, den, refill_border=REFILL_BORDER).permute(1, 2, 0)
+
+
 def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
                          cfa_pattern, config):
     """Accumulate the stacked frames into (num, den) in place through K5',
@@ -146,9 +189,8 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     comp_imgs = _as_tensor(comp_imgs, device)
     curves = (_as_tensor(std_curve, device), _as_tensor(diff_curve, device))
 
-    align_state = init_alignment(to_grey(ref_img, config), config)
-    ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
-                                config)
+    align_state, ref_stats = init_reference(ref_img, curves, config, cfa_pattern,
+                                            white_balance)
 
     merge_frame = select_merge(config)
     num = torch.zeros(accum_shape(config, ref_img.shape), dtype=DEFAULT_FLOAT,
@@ -158,13 +200,10 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
         if accumulate_r else None
     flows, rmaps, covs_list = [], [], []
     for frame in comp_imgs:
-        flow = to_raw_flow(align(align_state, to_grey(frame, config), config),
-                           frame.shape, config)
-        r = compute_robustness(frame, ref_stats, flow, cfa_pattern,
-                               white_balance, config)
+        flow, r, covs = frame_step(frame, align_state, ref_stats, config,
+                                   cfa_pattern, white_balance)
         if acc_r is not None:
             acc_r = acc_r + r
-        covs = estimate_kernels(frame, config)
         if chunked:
             covs_list.append(covs)
         else:
@@ -184,10 +223,8 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
                              num, den, cfa_pattern, config)
         del covs_stack
 
-    ref_covs = estimate_kernels(ref_img, config)
-    merge_ref_tiled(ref_img, ref_covs, num, den, cfa_pattern, config,
-                    acc_rob=acc_r if denoise else None)
-    image = normalize_accum(num, den, refill_border=REFILL_BORDER).permute(1, 2, 0)
+    merge_reference(ref_img, num, den, cfa_pattern, config, acc_r)
+    image = normalize_image(num, den)
 
     debug = {}
     if debug_mode and flow_stack is not None:

@@ -17,8 +17,16 @@ median or Gauss frame-count denoiser
 device after the pipeline, before the finishing. The finishing takes the
 JAX package's route (:func:`use_device_finishing`): the device chain, or the
 host chain (:mod:`..finishing.raw2rgb`, OpenCV's Mertens fusion), whose
-result comes back to ``device`` as float32. A device mesh (``tpu.mesh``)
-raises ``NotImplementedError`` before any work.
+result comes back to ``device`` as float32.
+
+A mesh (``tpu.mesh = [nf, ns]``, ``nf * ns > 1``) takes the sharded
+pipeline (:mod:`hmsr_tpu_torch.parallel`): every rank of a
+``torch.distributed`` process group of ``nf * ns`` ranks calls
+``process_burst`` with the same burst (``torchrun --nproc-per-node=N``);
+the frames are padded with zero-weight frames to a multiple of ``nf``, the
+Monte-Carlo noise curves are drawn on rank 0 and broadcast, and every rank
+finishes the same assembled image. Without such a process group it raises
+``RuntimeError`` before any work.
 """
 
 import os
@@ -32,6 +40,8 @@ from ..finishing import apply_orientation, make_postprocess_device, postprocess
 from ..finishing.denoise import frame_count_denoising_gauss, frame_count_denoising_median
 from ..io.burst import Burst, load_burst
 from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
+from ..noise.fast_monte_carlo import N_BRIGHTNESS_LEVELS
+from ..parallel import make_mesh, make_sharded_pipeline, pad_frames
 from ..utils.timing import getTime, timer
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
@@ -73,13 +83,27 @@ def process_arrays(ref_raw, comp_raws, config=None, cfa=None,
     return process_burst(burst, config, device)
 
 
-def check_process_supported(config):
-    """Raise ``NotImplementedError`` for what the port's ``process_burst``
-    lacks, a mesh of several devices (the pipeline checks its own slice)."""
-    mesh = config.get("tpu", {}).get("mesh", None)
-    if mesh and int(mesh[0]) * int(mesh[1]) > 1:
-        raise NotImplementedError(f"tpu.mesh={list(mesh)}: sharding over several "
-                                  f"devices is not ported")
+def mesh_of(config):
+    """The rank's :class:`~hmsr_tpu_torch.parallel.Mesh` when ``tpu.mesh``
+    asks for several ranks, else None; raises ``RuntimeError`` outside a
+    process group of that size."""
+    shape = config.get("tpu", {}).get("mesh", None)
+    if shape and int(shape[0]) * int(shape[1]) > 1:
+        return make_mesh(int(shape[0]), int(shape[1]))
+    return None
+
+
+def broadcast_mc_curves(alpha, beta, device):
+    """The Monte-Carlo noise curves drawn on rank 0 of the default process
+    group and broadcast, so that every rank merges with the same bits (and
+    one rank writes the disk cache)."""
+    import torch.distributed as dist
+    buf = torch.empty((2, N_BRIGHTNESS_LEVELS + 1), dtype=torch.float64, device=device)
+    if dist.get_rank() == 0:
+        buf.copy_(torch.as_tensor(np.stack(run_fast_MC(alpha, beta, device=device))))
+    dist.broadcast(buf, src=0)
+    std, diff = buf.cpu().numpy()
+    return std, diff
 
 
 def use_device_finishing(config):
@@ -155,7 +179,7 @@ def process_burst(burst, config, device="cuda"):
     (noise model, SNR-based entries), as in the JAX package."""
     t0 = time.perf_counter()
     device = resolve_device(device)
-    check_process_supported(config)
+    mesh = mesh_of(config)
     verbose_1 = config.verbose >= 1
     verbose_2 = config.verbose >= 2
     ref = torch.as_tensor(burst.ref_raw, dtype=DEFAULT_FLOAT, device=device)
@@ -184,7 +208,8 @@ def process_burst(burst, config, device="cuda"):
 
     # ---- Monte-Carlo noise curves on the device (cached per alpha/beta)
     if std_curve is None:
-        std_curve, diff_curve = run_fast_MC(alpha, beta, device=device)
+        std_curve, diff_curve = run_fast_MC(alpha, beta, device=device) \
+            if mesh is None else broadcast_mc_curves(alpha, beta, device)
     if verbose_2:
         t0 = getTime(t0, " -- Read raw files & noise curves")
 
@@ -204,26 +229,45 @@ def process_burst(burst, config, device="cuda"):
     ard = config.accumulated_robustness_denoiser
     ard.enabled = bool(ard.median.enabled or ard.gauss.enabled or ard.merge.enabled)
 
-    # ---- the pipeline, optionally under torch.profiler
-    if config.verbose >= 3:
-        _trace_stages(burst, std_curve, diff_curve, config, device)
-    pipe = make_pipeline(config, burst.cfa, burst.white_balance, device)
-    pipe = timer(pipe, verbose_2, end_s=" -- Device pipeline (align+merge)")
+    # ---- the pipeline (sharded over the ranks with a mesh), optionally under
+    # torch.profiler
     curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
               torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
+    if mesh is None:
+        if config.verbose >= 3:
+            _trace_stages(burst, std_curve, diff_curve, config, device)
+        pipe = make_pipeline(config, burst.cfa, burst.white_balance, device)
+
+        def run():
+            return pipe(ref, comps, *curves)
+    else:
+        sharded = make_sharded_pipeline(config, burst.cfa, burst.white_balance, mesh,
+                                        device)
+        frames, weights = pad_frames(comps, mesh.n_frames)
+
+        def run():
+            outs = sharded(ref, frames, weights, *curves)
+            debug = {}
+            if ard.enabled or config.robustness.save_mask:
+                debug["accumulated_robustness"] = outs[1]
+            if config.debug:            # without the zero-weight padding frames
+                debug["flow"] = outs[2][:len(comps)]
+                debug["robustness"] = outs[3][:len(comps)]
+            return outs[0], debug
+    run = timer(run, verbose_2, end_s=" -- Device pipeline (align+merge)")
     profile_dir = config.get("tpu", {}).get("profile_dir", None)
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + \
             ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         with profile(activities=acts) as prof:
-            image, debug = pipe(ref, comps, *curves)
+            image, debug = run()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
     else:
-        image, debug = pipe(ref, comps, *curves)
+        image, debug = run()
 
     # ---- frame-count-aware post denoising, with the pipeline's scale
     if ard.median.enabled or ard.gauss.enabled:

@@ -52,7 +52,7 @@ SIGNATURES = {
     "hmsr_warp_layout": [_I, _I, _I, _P],
     "hmsr_bm_layout": [_I, _I, _I, _I, _P],
     "hmsr_merge": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                   _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _P],
     "hmsr_merge_burst": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I,
                          _I, _I, _I, _I, _I, _I, _P],
     "hmsr_merge_layout": [_I, _I, _I, _I, _I, _P],

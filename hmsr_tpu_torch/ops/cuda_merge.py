@@ -14,9 +14,13 @@ accumulator plane, covariances on the raw grid, no CFA pick) times the
 steerable or the isotropic kernel (``iso``: no covariance is read). The
 accumulators keep the plain ``(c, H*s, W*s)`` shape, c = 3 (Bayer) or 1
 (grey) (the TPU's ``padded_accum_shape`` is a tiling artefact), and are
-updated in place. A wrapper launches its kernel for CUDA tensors and runs
+updated in place. K5 also takes a band of them (``row_offset``, the banded
+branch of ``merge_pallas`` that the sharded pipeline's space axis runs):
+``(c, rows, W*s)`` holding global HR rows from ``row_offset``, a multiple
+of ``Ts*s``. A wrapper launches its kernel for CUDA tensors and runs
 the plain version only for CPU tensors; ``merge_accumulate.launches`` and
-``merge_burst_accumulate.launches`` count kernel launches.
+``merge_burst_accumulate.launches`` count kernel launches,
+``merge_accumulate.band_launches`` those of K5 into a band.
 """
 
 import ctypes
@@ -85,19 +89,20 @@ def accumulate_tap(vals, accs, w, c, i, j, cfa):
 
 
 def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
-                scale, grey=False, iso=False):
+                scale, grey=False, iso=False, row_offset=0):
     """Plain version of K5: the semantics of
     :func:`hmsr_tpu.models.merge_tiled.merge_tiled` (integer scale; Bayer or
     ``grey`` mode, steerable or ``iso`` kernel) written per HR pixel,
     evaluated in bands of HR rows and accumulated into ``num``/``den`` in
-    place. Returns ``(num, den)``.
+    place. Returns ``(num, den)``. ``num``/``den`` hold global HR rows
+    ``row_offset ..`` of the image; rows past the image take nothing.
     """
     s, Ts = int(scale), int(tile_size)
     g = 1 if grey else 2
     cfa = None if grey else np.asarray(cfa_pattern, dtype=np.int64)
     H, W = comp_img.shape
     gh, gw = covs.shape[1:]
-    n_ch, out_h, out_w = num.shape
+    n_ch, acc_h, out_w = num.shape
     B = Ts * s
     band_rows = 8 * B           # bounds the per-band temporaries
     dev = comp_img.device
@@ -111,9 +116,10 @@ def merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, tile_size,
     def floordiv(a, b):
         return torch.div(a, b, rounding_mode="floor")
 
-    for y0 in range(0, out_h, band_rows):
-        y1 = min(y0 + band_rows, out_h)
-        R = torch.arange(y0, y1, device=dev)[:, None]
+    n_rows = min(acc_h, H * s - row_offset)   # the band's rows in the image
+    for y0 in range(0, n_rows, band_rows):
+        y1 = min(y0 + band_rows, n_rows)
+        R = torch.arange(row_offset + y0, row_offset + y1, device=dev)[:, None]
         ty = R // B
         rl_y, rl_x = R - ty * B, C - tx * B
         fx = flow[ty, tx, 0].to(DEFAULT_FLOAT)
@@ -194,9 +200,11 @@ def merge_burst_plain(comp_stack, flows, covs_stack, r_stack, num, den,
 
 
 def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, grey,
-                      lead=()):
+                      lead=(), row_offset=0):
     """Checks shared by the K5 and K5' wrappers; ``lead`` is the frame axis
-    of the stacked inputs (empty for one frame). Returns ``(H, W)``."""
+    of the stacked inputs (empty for one frame), ``row_offset`` the global
+    HR row of a band's first (K5 only; any number of rows from a multiple
+    of ``Ts*s``). Returns ``(H, W)``."""
     Ts, s = int(tile_size), int(scale)
     dev = comp.device
     nl = len(lead)
@@ -210,9 +218,15 @@ def _check_merge_args(comp, flow, covs, r, num, den, tile_size, scale, grey,
                      f"stacks of different lengths: comp {tuple(comp.shape)}, flow "
                      f"{tuple(flow.shape)}, covs {tuple(covs.shape)}, r {tuple(r.shape)}")
     _build.check_arg(s == scale and s >= 1, f"integer scale required, got {scale}")
-    _build.check_arg(tuple(num.shape) == (n_ch, H * s, W * s) == tuple(den.shape),
+    rows = H * s if nl else num.shape[1]
+    _build.check_arg(tuple(num.shape) == (n_ch, rows, W * s) == tuple(den.shape)
+                     and rows >= 1,
                      f"accumulators {tuple(num.shape)}, {tuple(den.shape)} "
                      f"for a {(H, W)} {'grey' if grey else 'Bayer'} frame at scale {s}")
+    _build.check_arg(not nl or row_offset == 0, "K5' takes the whole accumulator")
+    _build.check_arg(row_offset >= 0 and row_offset % (Ts * s) == 0,
+                     f"row_offset {row_offset} is no non-negative multiple of "
+                     f"Ts*s = {Ts * s}")
     _build.check_arg(tuple(r.shape[nl:]) == (H, W) and covs.shape[nl] == 3,
                      f"r {tuple(r.shape)}, covs {tuple(covs.shape)}")
     fy, fx, fc = flow.shape[nl:]
@@ -252,7 +266,7 @@ def _launch_args(cfa_pattern, grey, tensors):
 
 
 def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
-                     tile_size, scale, grey=False, iso=False):
+                     tile_size, scale, grey=False, iso=False, row_offset=0):
     """K5: accumulate one frame into ``num``/``den`` (c, H*s, W*s) in place;
     returns ``(num, den)``.
 
@@ -261,24 +275,37 @@ def merge_accumulate(comp_img, flow, covs, r, num, den, cfa_pattern,
     mode, the raw grid in ``grey`` mode; not read with ``iso``); ``r``:
     (H, W) robustness; all contiguous float32 on one device. c is 3 in
     Bayer mode and 1 in ``grey`` mode. Integer ``scale`` only.
+
+    With ``row_offset`` (a multiple of ``Ts*s``), ``num``/``den`` are a band
+    (c, rows, W*s) holding global HR rows ``row_offset ..``: the sharded
+    pipeline's space axis. Rows past the image take nothing, and a band
+    wholly past it launches nothing.
     """
     Ts, s = int(tile_size), int(scale)
-    H, W = _check_merge_args(comp_img, flow, covs, r, num, den, Ts, scale, grey)
+    H, W = _check_merge_args(comp_img, flow, covs, r, num, den, Ts, scale, grey,
+                             row_offset=row_offset)
     if comp_img.device.type == "cpu":
         return merge_plain(comp_img, flow, covs, r, num, den, cfa_pattern, Ts, s,
-                           grey, iso)
+                           grey, iso, row_offset)
     cfa = _launch_args(cfa_pattern, grey, (comp_img, flow, covs, r, num, den))
+    if row_offset >= H * s:
+        return num, den
     code = _build.library().hmsr_merge(
         _build.ptr(comp_img), H, W, _build.ptr(flow), flow.shape[1],
         _build.ptr(covs), covs.shape[1], covs.shape[2], _build.ptr(r),
-        _build.ptr(num), _build.ptr(den), num.shape[1], num.shape[2], Ts, s,
-        cfa, int(grey), int(iso), _build.stream_of(comp_img))
+        _build.ptr(num), _build.ptr(den), H * s, num.shape[2],
+        row_offset // (Ts * s), num.shape[1], Ts, s, cfa, int(grey), int(iso),
+        _build.stream_of(comp_img))
     _build.check(code, "hmsr_merge")
     merge_accumulate.launches += 1
+    if row_offset or num.shape[1] != H * s:
+        merge_accumulate.band_launches += 1
     return num, den
 
 
 merge_accumulate.launches = 0
+#: the launches of ``launches`` into a band of the accumulators
+merge_accumulate.band_launches = 0
 
 
 def merge_burst_accumulate(comp_stack, flows, covs_stack, r_stack, num, den,

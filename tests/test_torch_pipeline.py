@@ -247,9 +247,11 @@ PROCESS_CHANGES = ["mesh"]
 
 @pytest.mark.parametrize("change", ["fused_pipeline", "vmapped_pipeline"] + PROCESS_CHANGES)
 def test_unported_configurations_raise(change):
-    """What the port lacks raises ``NotImplementedError``: in
-    ``make_pipeline``, and in ``process_arrays`` before any work for what only
-    the process layer reads (a mesh)."""
+    """What the port lacks raises ``NotImplementedError`` in
+    ``make_pipeline``; a mesh, which only the process layer reads, raises
+    ``RuntimeError`` in ``process_arrays`` before any work when no
+    ``torch.distributed`` process group of its size runs (it never falls
+    back to one device)."""
     config = small_config(128)
     if change == "vmapped_pipeline":
         config.tpu.pipeline = "vmapped"
@@ -257,7 +259,9 @@ def test_unported_configurations_raise(change):
         config.tpu.pipeline = "fused"
     elif change == "mesh":
         config.tpu.mesh = [2, 1]
-    with pytest.raises(NotImplementedError):
+    expected = (RuntimeError, "torch.distributed") if change == "mesh" \
+        else (NotImplementedError, None)
+    with pytest.raises(expected[0], match=expected[1]):
         if change in PROCESS_CHANGES:
             from hmsr_tpu_torch.models.process import process_arrays
             frames = np.zeros((3, 128, 128), np.float32)
