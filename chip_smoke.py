@@ -11,9 +11,10 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the six kernels of the path (K1 block matching, K2 ICA
-   Gauss-Newton steps, K3 fused ICA, K4 upscale-warp, K5 merge, K5'
-   burst-fused merge) and the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
+1. build the seven kernels (K1 block matching, K2 ICA Gauss-Newton steps,
+   K3 fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge, K6 the
+   fused form's burst-and-reference merge) and the probes P1 and P2 from
+   ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
    instantiation of a templated kernel: K5 and K5' have one per variant,
@@ -21,7 +22,7 @@ and power limit:
    isotropic kernel), the launch layouts that the library computes for K1
    per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c) and K5/K5' per
    (Ts, scale, variant), and the static SASS instructions of every
-   instantiation of K1-K5' (``cuobjdump -sass`` of the library), in all
+   instantiation of K1-K6 (``cuobjdump -sass`` of the library), in all
    and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
@@ -119,10 +120,28 @@ and power limit:
    to the scan pipeline bit for bit, and the process layer's broadcast of
    the Monte-Carlo curves on the NCCL group; (e)
    ``graft_entry.dryrun_multichip(4)`` over gloo.
+12. the fused and vmapped forms (:func:`phase_fused_kernel` and after):
+   (a) K6 (``csrc/merge_fused.cu``: every frame, then the reference frame,
+   accumulators written once) against its plain version on the card, 19
+   compared frames of 3000x4000 x2 at Ts=16, 32 and 64, the other three
+   variants and the reference merge's denoiser at Ts=16, then scales 1 and
+   3 on 1024x1024 (5 frames) in every variant and with the denoiser: 1e-5
+   relative, and 1e-5 relative against K5' over the same frames into zeros
+   followed by the plain reference merge; device time, host us per call,
+   the plain version's time, the bound, registers and spills; (b) the
+   512x512 8-frame slice in the fused (slab and tiled) and vmapped forms,
+   card against CPU with phase 3's bounds, in Bayer, grey, iso and with the
+   denoiser, vmapped also against the card's scan, fused at x1.5 equal to
+   scan; (c) the phase 4 burst in the fused form, warm-up + 3 timed runs
+   (K6 1, K5 0, K5' 0) and ``process_arrays`` once, peak memory against
+   ``MAX_PEAK_GIB["fused"]``; x3 (the denoiser) fused once; vmapped once,
+   against phase 4's scan image; (d) the fused form's PSNRs on the card,
+   each within 0.05 dB of ``ACCURACY_r05.json`` (the JAX package's fused
+   record).
 
 The line before the last is a JSON object with one entry per kernel (K5
 and K5' with their four variants under ``variants``, K5 with its banded
-branch under ``banded``); the last line is
+branch under ``banded``, K6 with its cases under ``cases``); the last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package ``hmsr_tpu``.
 """
@@ -155,7 +174,8 @@ from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_siz
 from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.merge_tiled import integer_scale
-from hmsr_tpu_torch.models.pipeline import accum_shape, make_pipeline, to_grey
+from hmsr_tpu_torch.models.pipeline import (accum_shape, make_pipeline, pipeline_form,
+                                             to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
@@ -179,6 +199,10 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K5'": ("K5' burst-fused merge accumulation (chunk of frames)",
             cuda_merge.merge_burst_accumulate, "hmsr_tpu_torch/csrc/merge_burst.cu",
             "hmsr_tpu/ops/pallas_merge.py:302"),
+    # replaces XLA code of the JAX package (no pl.pallas_call there)
+    "K6": ("K6 burst-and-reference fused merge (every frame, then the reference)",
+           cuda_merge.merge_fused_accumulate, "hmsr_tpu_torch/csrc/merge_fused.cu",
+           "hmsr_tpu/models/merge_slab.py:31"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
 #: counts stay out of the path's counts)
@@ -192,13 +216,18 @@ MAIN_TS = 16            # the bright main path's tile size
 CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5)
 BRIGHT_LAUNCHES = {
-    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0},
-    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4}}
+    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0},
+    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0},
+    "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
-#: hold 19 robustness maps and covariance sets, ~1.6 GB)
-MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0}
+#: hold 19 robustness maps and covariance sets, ~1.6 GB); fused, also per
+#: run of the pipeline alone: 5.15 GiB through process_arrays and 5.69
+#: alone (the stacks, K6's padded num/den, 1.16 GB, written while the last
+#: run's 0.58 GB image is still held)
+MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0, "fused": 7.5}
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
+FUSED_KERNEL = "merge_fused_kernel"     # K6, merge_fused_kernel<G,ISO>
 #: the variants of K5 and K5' (grey, iso), the main path's first
 MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
                   "bayer-iso": (False, True), "grey-iso": (True, True)}
@@ -248,7 +277,7 @@ def sass_counts(bases):
 
 def phase_build(raw_shape):
     """Phase 1: build; print each kernel's ptxas resources, the launch
-    layouts of K1-K5' and the static SASS counts of K1-K5'. Returns the
+    layouts of K1-K5' and the static SASS counts of K1-K6. Returns the
     ptxas report."""
     _build.library()
     log(f"phase 1 built {len(KERNELS)} kernels of the path and {len(PROBES)} probes in "
@@ -299,7 +328,7 @@ def phase_build(raw_shape):
             f"(4 pixels each), window {g['window']}x{g['window']}, "
             f"{g['smem_bytes']} B dynamic shared memory")
     bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
-             *MERGE_KERNELS.values()}
+             *MERGE_KERNELS.values(), FUSED_KERNEL}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -832,9 +861,11 @@ def expected_launches(ref, config, n_cmp):
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
     else after K1); one K4 per frame and two at init (none with robustness
     off); one K5 per frame
-    (scan), or one K5' per chunk of ``tpu.merge_chunk`` frames (chunked),
-    and neither at a fractional scale (the gather merge, plain torch). With
-    the decimating grey the levels are those of the half-size grey image."""
+    (scan, vmapped), or one K5' per chunk of ``tpu.merge_chunk`` frames
+    (chunked), or one K6 per burst (fused), and none of them at a
+    fractional scale (the gather merge, plain torch; fused runs the scan
+    form there). With the decimating grey the levels are those of the
+    half-size grey image."""
     state = init_alignment(to_grey(ref, config), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
@@ -844,14 +875,14 @@ def expected_launches(ref, config, n_cmp):
         else:
             k1 += 1
             k2 += 1
-    tpu = config.get("tpu", {})
-    chunked = tpu.get("pipeline", "auto") == "chunked"
-    fc = max(1, min(int(tpu.get("merge_chunk", 5)), n_cmp))
+    form = pipeline_form(config)
+    fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), n_cmp))
     k4 = n_cmp + 2 if config.robustness.enabled else 0
     tiled = integer_scale(config)
     return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
-            "K5": n_cmp if tiled and not chunked else 0,
-            "K5'": -(-n_cmp // fc) if chunked else 0}
+            "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
+            "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
+            "K6": 1 if form == "fused" else 0}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -969,8 +1000,8 @@ def phase_process(frames, device):
     """Phase 5: scan and chunked through ``process_arrays``; same image."""
     res = {mode: run_process(frames, mode, device, f"phase 5 process_arrays {mode}")
            for mode in ("scan", "chunked")}
-    for mode, want in BRIGHT_LAUNCHES.items():
-        check_counts(res[mode]["launches"], want, f"phase 5 {mode}")
+    for mode in res:
+        check_counts(res[mode]["launches"], BRIGHT_LAUNCHES[mode], f"phase 5 {mode}")
     a, b = res["scan"]["image"], res["chunked"]["image"]
     d = (a - b).abs()
     d_max = float(d.max())
@@ -1010,12 +1041,15 @@ def phase_dark(device, h=3000, w=4000, n_frames=20, seed=0):
 #: grid, 2.7 GB, four times Bayer's); x3 7.70 (num, den and the image at
 #: 9000x12000, 1.3 GB each); x1 1.96; x1.5 3.45; decimating 3.62, bilinear
 #: and bicubic 3.75; process_arrays with the Gauss denoiser 3.75, with the
-#: median 6.98 (a band's tap stack, its sorted copy and int64 indices: 4 GiB)
+#: median 6.98 (a band's tap stack, its sorted copy and int64 indices: 4 GiB);
+#: x3 fused 7.69 (K6's padded num/den at 9024x12000, 2.6 GB, beside the
+#: stacks); vmapped 4.93 (the stacks, as chunked's, with one plane set of
+#: num/den)
 CELL_PEAK_GIB = {"grey scan": 4.5, "grey chunked": 10.0, "grey process_arrays": 4.5,
                  "x3 scan": 10.0, "x1 scan": 3.0,
                  "x1.5 scan": 4.5, "decimating scan": 5.0, "bilinear scan": 5.0,
                  "bicubic scan": 5.0, "process_arrays gauss": 5.0,
-                 "process_arrays median": 9.5}
+                 "process_arrays median": 9.5, "x3 fused": 10.0, "vmapped": 6.5}
 
 
 def check_peak(peak, what, phase=8):
@@ -1333,7 +1367,8 @@ RUN_CLI = (
     "print('LAUNCHES ' + json.dumps({'K1': cuda_ica.block_match.launches,\n"
     "    'K2': cuda_ica.ica_steps.launches, 'K3': cuda_ica.ica_fused.launches,\n"
     "    'K4': cuda_warp.upscale_warp.launches, 'K5': cuda_merge.merge_accumulate.launches,\n"
-    "    \"K5'\": cuda_merge.merge_burst_accumulate.launches}))\n"
+    "    \"K5'\": cuda_merge.merge_burst_accumulate.launches,\n"
+    "    'K6': cuda_merge.merge_fused_accumulate.launches}))\n"
     "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
 #: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
 #: takes the device chain)
@@ -1892,6 +1927,317 @@ def phase_sharded(device, full_image):
         "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fused and vmapped forms
+# ---------------------------------------------------------------------------
+
+#: (Ts, scale, variant, denoiser) of phase 12 (a): 19 compared frames of
+#: 3000x4000, then F_SMALL frames of 1024x1024
+FUSED_MAIN_CASES = [(16, 2, "bayer-steerable", False), (32, 2, "bayer-steerable", False),
+                    (64, 2, "bayer-steerable", False), (16, 2, "grey-steerable", False),
+                    (16, 2, "bayer-iso", False), (16, 2, "grey-iso", False),
+                    (16, 2, "bayer-steerable", True)]
+FUSED_SMALL_CASES = [(16, s, v, False) for s in (1, 3) for v in MERGE_VARIANTS] + \
+    [(16, 3, "bayer-steerable", True)]
+F_MAIN, F_SMALL = 19, 5
+#: the 512^2 slice's variants of phase 12 (b): (grey, iso, denoiser)
+FUSED_SLICE_VARIANTS = {"bayer-steerable": (False, False, False),
+                        "grey-steerable": (True, False, False),
+                        "bayer-iso": (False, True, False),
+                        "bayer-steerable denoiser": (False, False, True)}
+#: the fused and vmapped forms: tpu.pipeline and tpu.fused_impl
+FORMS = {"fused slab": ("fused", "slab"), "fused tiled": ("fused", "tiled"),
+         "vmapped": ("vmapped", "slab")}
+
+
+def ref_merge_flops(iso, rr, denoise):
+    """Float operations of the reference merge at one HR pixel: per tap of
+    the (2 rr + 1)^2 window the exponent (8 steerable, 4 iso; one more
+    division with the denoiser), 1 exp, 2 for the weight, 2 to accumulate;
+    25 for the steerable covariance interpolation and the guarded inverse."""
+    return (2 * rr + 1) ** 2 * ((4 if iso else 8) + 5 + int(denoise)) + \
+        (0 if iso else 25)
+
+
+def denoiser_kwargs(config, acc_rob):
+    m = config.accumulated_robustness_denoiser.merge
+    return dict(acc_rob=acc_rob, rad_max=int(m.rad_max),
+                max_multiplier=float(m.max_multiplier),
+                max_frame_count=float(m.max_frame_count))
+
+
+def card_scenes(gen, n, shape, device, block=4):
+    """``n`` blocky scenes with 2 % noise, (n, H, W) in [0, 1], made on the
+    card from the generator ``gen`` (``blocky_scene``'s kind, without the
+    host's time)."""
+    H, W = shape
+    base = torch.rand((n, H // block + 1, W // block + 1), generator=gen, device=device)
+    scene = base.repeat_interleave(block, 1).repeat_interleave(block, 2)[:, :H, :W]
+    noise = torch.randn((n, H, W), generator=gen, device=device)
+    return (scene + 0.02 * noise).clamp(0, 1).contiguous()
+
+
+def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, ptxas):
+    """K6 on F frames and the reference against its plain version (1e-5
+    relative), and against K5' over the same frames into zeros followed by
+    the plain reference merge (1e-5 relative, on the image's rows and
+    columns); timed. Frames, robustness and the accumulated robustness are
+    drawn on the card from ``gen``, the flows from ``rng``. Returns the
+    row."""
+    H, W = raw_shape
+    grey, iso = MERGE_VARIANTS[variant]
+    config = burst_config(raw_shape, 40)
+    config.mode = "grey" if grey else "bayer"
+    scenes = card_scenes(gen, F + 1, raw_shape, device)
+    ref, comp = scenes[0], scenes[1:]
+    covs = torch.stack([estimate_kernels(c, config) for c in comp]).contiguous()
+    ref_covs = estimate_kernels(ref, config).contiguous()
+    flows = random_flow(rng, H, W, Ts, device, lead=(F,))
+    r = torch.rand((F, H, W), generator=gen, device=device)
+    dn = {}
+    if denoise:
+        acc = torch.rand((H, W), generator=gen, device=device) * ((F + 1) * 0.4)
+        dn = denoiser_kwargs(config, acc)
+    args = (comp, flows, covs, r, ref, ref_covs, CFA_RGGB, Ts, s)
+    kw = dict(grey=grey, iso=iso, **dn)
+    n_k, d_k = cuda_merge.merge_fused_accumulate(*args, **kw)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    n_p, d_p = cuda_merge.merge_fused_plain(*args, **kw)
+    t1.record()
+    torch.cuda.synchronize()
+    ms_p = t0.elapsed_time(t1)
+    err_n = nan_max_abs(n_k, n_p) / float(n_p.abs().max())
+    err_d = nan_max_abs(d_k, d_p) / float(d_p.abs().max())
+    err = max(nan_max_abs(n_k, n_p), nan_max_abs(d_k, d_p))
+    del n_p, d_p
+    n_ch = 1 if grey else 3
+    n_s = torch.zeros((n_ch, s * H, s * W), device=device)
+    d_s = torch.zeros_like(n_s)
+    cuda_merge.merge_burst_accumulate(comp, flows, covs, r, n_s, d_s, CFA_RGGB, Ts, s,
+                                      grey, iso)
+    cuda_merge.merge_ref_plain(ref, ref_covs, n_s, d_s, CFA_RGGB, s, grey, iso, **dn)
+    err_sn = nan_max_abs(n_k[:, :s * H, :s * W], n_s) / float(n_s.abs().max())
+    err_sd = nan_max_abs(d_k[:, :s * H, :s * W], d_s) / float(d_s.abs().max())
+    del n_s, d_s, n_k, d_k
+    tk = timed(lambda: cuda_merge.merge_fused_accumulate(*args, **kw))
+    rr = int(dn["rad_max"]) if denoise else 1
+    shape = cuda_merge.fused_accum_shape(raw_shape, Ts, s, grey)
+    hr_px = shape[1] * shape[2]
+    in_bytes = nbytes(comp, flows, r, ref) + (0 if iso else nbytes(covs, ref_covs)) + \
+        (nbytes(dn["acc_rob"]) if denoise else 0)
+    bnd = bound(in_bytes + 2 * 4 * n_ch * hr_px,
+                hr_px * (F * merge_flops(iso) + ref_merge_flops(iso, rr, denoise)))
+    inst = merge_instance(FUSED_KERNEL, grey, iso)
+    regs = ptxas[inst]
+    tag = (f"{variant}{' denoiser' if denoise else ''} Ts={Ts} x{s}, {F} frames of "
+           f"{(H, W)} -> {shape}")
+    log(f"  K6 {tag}: rel max|d| against its plain version num {err_n:.3e} den "
+        f"{err_d:.3e}; against K5' + reference merge num {err_sn:.3e} den "
+        f"{err_sd:.3e}; {time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {inst} {regs['registers']} registers, spills "
+        f"{regs['spill_stores']}/{regs['spill_loads']} B [{CARD}]")
+    if not max(err_n, err_d, err_sn, err_sd) <= 1e-5:
+        raise AssertionError(f"K6 {tag}: relative errors {err_n:.3e} / {err_d:.3e} "
+                             f"against the plain version, {err_sn:.3e} / {err_sd:.3e} "
+                             f"against K5' + the reference merge")
+    return dict(Ts=Ts, s=s, variant=variant, denoise=denoise, frames=F, err=err,
+                ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0],
+                bound_by=bnd[1], registers=regs["registers"])
+
+
+def phase_fused_kernel(device, ptxas, seed=12):
+    """Phase 12 (a). Returns the rows of every case."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device).manual_seed(seed)
+    rows = [check_fused_kernel(device, (3000, 4000), Ts, s, v, dn, F_MAIN, rng, gen,
+                               ptxas) for Ts, s, v, dn in FUSED_MAIN_CASES]
+    rows += [check_fused_kernel(device, (1024, 1024), Ts, s, v, dn, F_SMALL, rng, gen,
+                                ptxas) for Ts, s, v, dn in FUSED_SMALL_CASES]
+    return rows
+
+
+def form_config(config, form):
+    config = copy.deepcopy(config)
+    config["tpu"] = {"pipeline": FORMS[form][0], "fused_impl": FORMS[form][1]}
+    return config
+
+
+def phase_fused_slice(device, size=512, n_frames=8, seed=2):
+    """Phase 12 (b): the slice in the fused (slab, tiled) and vmapped forms
+    on the card against the same forms on the CPU (phase 3's bounds), in
+    each of :data:`FUSED_SLICE_VARIANTS`, launch counts asserted; vmapped
+    against the card's scan within the same bounds; fused at x1.5 equal to
+    scan. Returns ``{variant: K6 launches of its fused slab run}``."""
+    frames = make_burst(size, size, n_frames, seed, device)
+    std, diff = affine_curves()
+    k6 = {}
+    for variant, (grey, iso, denoise) in FUSED_SLICE_VARIANTS.items():
+        base = burst_config((size, size), 40, debug=True)
+        base.mode = "grey" if grey else "bayer"
+        base.merging.kernel = "iso" if iso else "steerable"
+        base.accumulated_robustness_denoiser.enabled = denoise
+        scan = make_pipeline(base, CFA_RGGB, WB, device)(frames[0], frames[1:], std, diff)
+        for form in FORMS:
+            config = form_config(base, form)
+            outs = {}
+            for dev in (device, "cpu"):
+                burst = frames.to(dev)
+                reset_counts()
+                outs[dev] = make_pipeline(config, CFA_RGGB, WB, dev)(burst[0], burst[1:],
+                                                                    std, diff)
+                if dev == device:
+                    got = counts()
+                    check_counts(got, expected_launches(frames[0], config, n_frames - 1),
+                                 f"phase 12 slice {variant} {form}")
+                    if form == "fused slab":
+                        k6[variant] = got["K6"]
+            slice_parity(outs[device][0], outs[device][1]["flow"], outs["cpu"][0],
+                         outs["cpu"][1]["flow"], f"phase 12 slice {variant} {form}")
+            if form == "vmapped":
+                slice_parity(outs[device][0], outs[device][1]["flow"], scan[0].cpu(),
+                             scan[1]["flow"].cpu(),
+                             f"phase 12 slice {variant} vmapped against scan on the card")
+    config = switch_config((size, size), 40, "x1.5", debug=True)
+    img_s, _ = make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:], std,
+                                                           diff)
+    config = form_config(config, "fused slab")
+    reset_counts()
+    img_f, _ = make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:], std,
+                                                           diff)
+    check_counts(counts(), expected_launches(frames[0], config, n_frames - 1),
+                 "phase 12 slice x1.5 fused")
+    d = float((img_f - img_s).abs().max())
+    log(f"phase 12 slice x1.5 fused against scan on the card: image max|d| {d:.3e}")
+    if d != 0.0:
+        raise AssertionError(f"phase 12: fused at x1.5 differs from scan ({d:.3e})")
+    return k6
+
+
+def phase_fused_full(frames, device, scan_image, n_runs=3):
+    """Phase 12 (c): the bright burst in the fused form (pipeline alone,
+    warm-up + ``n_runs`` timed runs, then ``process_arrays`` once), x3 with
+    the denoiser in the fused form once, and the vmapped form once; launch
+    counts, shapes, finite interiors and peaks; the fused image against the
+    scan image of phase 4 (printed: they differ where the per-slab refill
+    fills starved pixels), the vmapped image against it (phase 3's
+    bounds). Returns the fused run's result."""
+    h, w = frames.shape[1:]
+    std, diff = affine_curves()
+    snr = burst_snr(frames[0], std)
+    curves = (torch.as_tensor(std, device=device), torch.as_tensor(diff, device=device))
+    config = form_config(burst_config((h, w), snr), "fused slab")
+    pipe = make_pipeline(config, CFA_RGGB, WB, device)
+    torch.cuda.reset_peak_memory_stats()
+    image, _, times, launches, warm = run_timed(
+        lambda: pipe(frames[0], frames[1:], *curves), n_runs,
+        lambda: expected_launches(frames[0], config, len(frames) - 1), "phase 12 fused",
+        device)
+    check_counts(launches, BRIGHT_LAUNCHES["fused"], "phase 12 fused")
+    check_image(image, (2 * h, 2 * w, 3), "phase 12 fused")
+    peak = torch.cuda.max_memory_allocated()
+    d = (image.cpu() - scan_image).abs()[8:-8, 8:-8]
+    res = dict(min_s=min(times), median_s=statistics.median(times), warm_s=warm,
+               launches=launches, peak_bytes=peak)
+    log(f"phase 12 fused {len(frames)}x{h}x{w} x2: warm-up {warm:.4f} s, min "
+        f"{res['min_s']:.4f} s, median {res['median_s']:.4f} s of {n_runs}; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per run {launches}; against phase 4's scan "
+        f"image mean|d| {float(d.mean()):.3e}, max|d| {float(d.max()):.3e}, "
+        f"{int((d > 1e-3).sum())} values above 1e-3 [{CARD}]")
+    if peak > MAX_PEAK_GIB["fused"] * 2**30:
+        raise AssertionError(f"phase 12 fused: peak memory {peak / 2**30:.3f} GiB > "
+                             f"{MAX_PEAK_GIB['fused']} GiB")
+    del image, d
+    pc = process_config("fused")
+    image, dt, got, peak = run_once(
+        lambda: process_arrays(frames[0], frames[1:], pc, device=device),
+        lambda: expected_launches(frames[0], pc, len(frames) - 1),
+        "phase 12 process_arrays fused", (2 * h, 2 * w, 3))
+    log(f"phase 12 process_arrays fused (once, device finishing): {dt:.4f} s, "
+        f"Ts={pc.block_matching.tuning.tile_size}; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {got} [{CARD}]")
+    if peak > MAX_PEAK_GIB["fused"] * 2**30:
+        raise AssertionError(f"phase 12 process_arrays fused: peak memory "
+                             f"{peak / 2**30:.3f} GiB > {MAX_PEAK_GIB['fused']} GiB")
+    res.update(process_s=dt, process_peak_bytes=peak)
+    del image
+    config = burst_config((h, w), snr)
+    BENCH_CELLS["x3"](config)
+    config = form_config(config, "fused slab")
+    image, dt, got, peak = run_once(
+        lambda: make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:],
+                                                            *curves),
+        lambda: expected_launches(frames[0], config, len(frames) - 1),
+        "phase 12 x3 fused", (3 * h, 3 * w, 3))
+    log(f"phase 12 x3 fused (once, the denoiser in K6): {dt:.4f} s, image "
+        f"{tuple(image.shape)}; peak memory {peak / 2**30:.3f} GiB; launches {got} "
+        f"[{CARD}]")
+    check_peak(peak, "x3 fused", 12)
+    res.update(x3_s=dt, x3_peak_bytes=peak)
+    del image
+    config = form_config(burst_config((h, w), snr), "vmapped")
+    image, dt, got, peak = run_once(
+        lambda: make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:],
+                                                            *curves),
+        lambda: expected_launches(frames[0], config, len(frames) - 1),
+        "phase 12 vmapped", (2 * h, 2 * w, 3))
+    d = (image.cpu() - scan_image).abs()[8:-8, 8:-8]
+    log(f"phase 12 vmapped (once): {dt:.4f} s; peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {got}; against phase 4's scan image mean|d| {float(d.mean()):.3e}, "
+        f"max|d| {float(d.max()):.3e} [{CARD}]")
+    check_peak(peak, "vmapped", 12)
+    if not (float(d.mean()) < 1e-4 and float(d.max()) < 1e-3):
+        raise AssertionError(f"phase 12 vmapped against scan: mean|d| {float(d.mean())}, "
+                             f"max|d| {float(d.max())}")
+    res.update(vmapped_s=dt, vmapped_peak_bytes=peak, vmapped_launches=got)
+    return res
+
+
+def phase_fused_accuracy(device):
+    """Phase 12 (d): the fused form's PSNR against ground truth on the card,
+    each of the five scores within :data:`ACCURACY_TOL_DB` of
+    :data:`ACCURACY_RECORD`, which the JAX package scored through the same
+    form. Returns ``{score: card dB}``."""
+    with open(os.path.join(ROOT, ACCURACY_RECORD)) as f:
+        record = json.load(f)
+    truth = score_accuracy.score_truth(device=device, pipeline="fused")
+    rob = score_accuracy.score_robustness(device=device, pipeline="fused")
+    rows = [("psnr_vs_truth_db", truth["psnr_db"], record["truth"]["psnr_db"])]
+    rows += [(key, rob[key], record["robustness_value"][key])
+             for key in ("psnr_ghost_on_db", "psnr_global_on_db", "psnr_ghost_off_db",
+                         "psnr_global_off_db")]
+    for key, got, want in rows:
+        log(f"phase 12 accuracy fused {key}: card {got:.4f} dB; {ACCURACY_RECORD} "
+            f"{want:.4f} dB, difference {got - want:+.4f}")
+    bad = [key for key, got, want in rows if not abs(got - want) <= ACCURACY_TOL_DB]
+    if bad:
+        raise AssertionError(f"phase 12 accuracy: {bad} more than {ACCURACY_TOL_DB} dB "
+                             f"from {ACCURACY_RECORD}")
+    return {key: got for key, got, _ in rows}
+
+
+def fused_entry(rows, launches, slice_k6, ptxas):
+    """K6's entry of the ``kernels`` line: the main path's case (19 frames
+    of 3000x4000, x2, Ts=16, Bayer-steerable), its launches per run of the
+    fused bright burst, and per variant and case the rows of phase 12 (a)."""
+    main = next(e for e in rows if (e["Ts"], e["s"], e["variant"], e["denoise"])
+                == FUSED_MAIN_CASES[0][:4] and e["frames"] == F_MAIN)
+    name, _, src, rep = KERNELS["K6"]
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "replaces_also": "hmsr_tpu/models/merge_fused.py:28",
+        "replaces_kind": "XLA (no pl.pallas_call)",
+        "launches": launches, "launches_in": "the fused bright burst (phase 12 (c)), "
+        "per run", "max_abs_err": max(e["err"] for e in rows), "ms": main["ms"],
+        "host_us": main["host_us"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "registers": ptxas[merge_instance(FUSED_KERNEL, False, False)]["registers"],
+        "slice_launches": slice_k6,
+        "cases": [{k: e[k] for k in ("Ts", "s", "variant", "denoise", "frames", "ms",
+                                     "host_us", "plain_ms", "bound_ms", "bound_by",
+                                     "registers", "err")} for e in rows]}
+
+
 def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
     """The K5 or K5' entry's ``variants``: per variant of
     :data:`MERGE_VARIANTS`, its numbers per launch at the main path's shapes
@@ -1964,12 +2310,23 @@ def main():
     del frames
     log("phase 11 the multi-device path on torch.distributed (every rank on this card)")
     banded = phase_sharded(device, full_image)
-    del full_image
+    log("phase 12 the fused and vmapped forms: K6, the 512^2 slice, the full burst, "
+        "accuracy")
+    fused_rows = phase_fused_kernel(device, ptxas)
+    slice_k6 = phase_fused_slice(device)
+    frames = make_burst(3000, 4000, 20, 0, device)
+    fused = phase_fused_full(frames, device, full_image)
+    del frames, full_image
+    phase_fused_accuracy(device)
     check_no_reference_imports()
-    log(f"phases 0-11 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-12 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
+        if key == "K6":
+            entries.append(fused_entry(fused_rows, fused["launches"]["K6"], slice_k6,
+                                       ptxas))
+            continue
         # per frame of the main path: the Ts=16 launches, each as often as a
         # frame of the path launches it
         main_path = [e for e in stats[key] if e["Ts"] == MAIN_TS and e["per_frame"]]

@@ -846,6 +846,242 @@ __device__ __forceinline__ void merge_thread_pixel(int k, int B, int nr, int R0,
   if (!(r < nr && R < out_h && C < out_w)) r = -1;
 }
 
+// ---------------------------------------------------------------------------
+// Reference-frame merge (the last step of K6)
+// ---------------------------------------------------------------------------
+//
+// Semantics of hmsr_tpu_torch/ops/cuda_merge.py:merge_ref_plain (the JAX
+// package's merge_ref_tiled) for HR pixel (R, C) of the reference frame, in
+// the four variants of the frame merge (G, ISO):
+//   - the pixel sits at pos = R / s (IEEE division, no half-pixel shift) and
+//     its taps are centred on rint(pos) (half to even), 3x3, or
+//     (2 rr + 1)^2 with the accumulated-robustness denoiser (rr = rad_max);
+//   - steerable: the covariance is bilinearly interpolated at kmap = (pos -
+//     0.5) / 2 (Bayer, grey grid) or pos (grey mode, raw grid) with signed
+//     truncation fractions and the lower index clamped at 0 (the upper at
+//     the grid's last row); the 2x2 inverse is guarded (identity where
+//     |det| <= 1e-10);
+//   - the denoiser: where the nearest accumulated robustness (at the
+//     clamped centre) is at most max_count, every tap of the rr window and
+//     z / max_mult, else the 3x3 taps; where it is below max_count the
+//     reference's sums replace the frames' instead of adding to them.
+// Every float is computed with the operations, in the order, of the plain
+// version; a masked tap adds w = 0, as there.
+//
+// merge_ref_stage writes a table entry per HR row and per HR column of the
+// block and copies the reference's raw window (zero outside the frame) and
+// its covariance window (indices clamped to the grid) into shared memory;
+// merge_ref_pixel then reads only shared memory (and acc_rob once).
+
+// What a pixel of the reference merge takes from its HR row (or column).
+struct __align__(16) MergeRefAxis {
+  int center;  // rint(pos): the taps' centre on the raw grid
+  int q;       // the centre's row (column) in the staged raw window
+  int par;     // floor parity of the centre (Bayer)
+  int acc;     // the centre clamped to the frame: acc_rob's row (column)
+  int k0, k1;  // covariance rows (columns) in the staged window (steerable)
+  float pos;   // R / s
+  float frac;  // covariance bilinear fraction (steerable)
+};
+
+// Staged window sizes of a block of `rows` HR rows at tap radius rr: the
+// raw window is Ts + 1 + 2 rr columns wide, the covariance window Ts/G + 2;
+// their rows are those the block's HR rows reach (one spare covariance row).
+struct MergeRefWindows {
+  int RW, RWr, CW, CWr;
+};
+
+template <int G, int ISO>
+__host__ __device__ inline MergeRefWindows merge_ref_windows(int Ts, int s,
+                                                             int rows, int rr) {
+  MergeRefWindows w;
+  w.RW = Ts + 1 + 2 * rr;
+  w.RWr = (rows - 1) / s + 2 + 2 * rr;
+  w.CW = ISO ? 0 : Ts / G + 2;
+  w.CWr = ISO ? 0 : (rows - 1 + G * s - 1) / (G * s) + 3;
+  return w;
+}
+
+// Floats of the staged reference: the row and column tables and the
+// windows, rounded up to 16 bytes.
+template <int G, int ISO>
+__host__ __device__ inline int merge_ref_floats(int Ts, int s, int rows,
+                                                int rr) {
+  const MergeRefWindows w = merge_ref_windows<G, ISO>(Ts, s, rows, rr);
+  const int n = 8 * (rows + Ts * s) + w.RWr * w.RW + 3 * w.CWr * w.CW;
+  return (n + 3) / 4 * 4;
+}
+
+// HR row (column) R along an axis of n raw pixels and ng covariance cells;
+// qbase and kbase are the first staged raw and covariance rows (columns).
+template <int G, int ISO>
+__device__ __forceinline__ MergeRefAxis merge_ref_axis(int R, int s, int n,
+                                                       int ng, int qbase,
+                                                       int kbase) {
+  MergeRefAxis a;
+  a.pos = (float)R / (float)s;
+  a.center = __float2int_rn(a.pos);
+  a.q = a.center - qbase;
+  a.par = G == 2 ? floormod(a.center, 2) : 0;
+  a.acc = clampi(a.center, 0, n - 1);
+  a.k0 = 0;
+  a.k1 = 0;
+  a.frac = 0.0f;
+  if (!ISO) {
+    const float kmap = G == 2 ? (a.pos - 0.5f) / 2.0f : a.pos;
+    const float t = truncf(kmap);
+    a.frac = kmap - t;
+    const int k = clampi((int)t, 0, ng - 1);
+    a.k0 = k - kbase;
+    a.k1 = min(k + 1, ng - 1) - kbase;
+  }
+  return a;
+}
+
+// Stages the reference's share of HR rows r0 .. r0+nr-1 of HR tile (ty, tx)
+// into buf (merge_ref_floats<G, ISO>(Ts, s, rows, rr) floats). All threads
+// of the block take part; merge_stage_wait() completes the copies.
+template <int G, int ISO>
+__device__ __forceinline__ void merge_ref_stage(
+    float* buf, const float* __restrict__ ref, int H, int W,
+    const float* __restrict__ rcovs, int gh, int gw, int ty, int tx, int r0,
+    int nr, int rows, int Ts, int s, int rr) {
+  const int B = Ts * s;
+  const int R0 = ty * B + r0;
+  const int C0 = tx * B;
+  const MergeRefAxis first_y = merge_ref_axis<G, ISO>(R0, s, H, gh, 0, 0);
+  const MergeRefAxis first_x = merge_ref_axis<G, ISO>(C0, s, W, gw, 0, 0);
+  const int qy = first_y.center - rr;
+  const int qx = first_x.center - rr;
+  const int ky = first_y.k0;
+  const int kx = first_x.k0;
+  const MergeRefWindows w = merge_ref_windows<G, ISO>(Ts, s, rows, rr);
+  MergeRefAxis* rowt = reinterpret_cast<MergeRefAxis*>(buf);
+  MergeRefAxis* colt = rowt + rows;
+  float* raw = reinterpret_cast<float*>(colt + B);
+  float* cov = raw + w.RWr * w.RW;
+  for (int i = threadIdx.x; i < nr + B; i += blockDim.x) {
+    if (i < nr) {
+      rowt[i] = merge_ref_axis<G, ISO>(R0 + i, s, H, gh, qy, ky);
+    } else {
+      colt[i - nr] = merge_ref_axis<G, ISO>(C0 + i - nr, s, W, gw, qx, kx);
+    }
+  }
+  const int RW = w.RW;
+  for (int p = threadIdx.x; p < w.RWr * RW; p += blockDim.x) {
+    const int y = qy + p / RW;
+    const int x = qx + p % RW;
+    const bool in = y >= 0 && y < H && x >= 0 && x < W;
+    cp_async_f32(raw + p, in ? ref + (size_t)y * W + x : ref, in ? 4 : 0);
+  }
+  if (!ISO) {
+    const int CW = w.CW, CWr = w.CWr;
+    for (int p = threadIdx.x; p < 3 * CWr * CW; p += blockDim.x) {
+      const int k = p / (CWr * CW);
+      const int e = p - k * CWr * CW;
+      const int i = min(ky + e / CW, gh - 1);
+      const int j = min(kx + e % CW, gw - 1);
+      cp_async_f32(cov + p, rcovs + ((size_t)k * gh + i) * gw + j, 4);
+    }
+  }
+}
+
+// The reference's contribution at row r (of the staged rows) and column c of
+// the tile: the kernel-weighted sum of its taps per accumulator plane (vals)
+// and the sum of the weights (accs), in the tap order of the plain version,
+// and whether it replaces the frames' sums (the denoiser's overwrite).
+// acc_rob (H, W) is null without the denoiser; cfa is the 2x2 pattern
+// packed as for merge_cfa_masks (Bayer).
+template <int G, int ISO>
+__device__ __forceinline__ void merge_ref_pixel(
+    const float* buf, int rows, int Ts, int s, int r, int c, int H, int W,
+    int cfa, int rr, const float* __restrict__ acc_rob, int rad_max,
+    float max_mult, float max_count, float* vals, float* accs,
+    bool& overwrite) {
+  constexpr int NCH = merge_planes(G);
+  const int B = Ts * s;
+  const MergeRefWindows w = merge_ref_windows<G, ISO>(Ts, s, rows, rr);
+  const MergeRefAxis* rowt = reinterpret_cast<const MergeRefAxis*>(buf);
+  const MergeRefAxis* colt = rowt + rows;
+  const float* raw = reinterpret_cast<const float*>(colt + B);
+  const float* cov = raw + w.RWr * w.RW;
+  const MergeRefAxis ay = rowt[r];
+  const MergeRefAxis ax = colt[c];
+
+  float ixx = 1.0f, ixy = 0.0f, iyy = 1.0f;
+  if (!ISO) {
+    float cc[3];
+    for (int k = 0; k < 3; ++k) {
+      const float* ck = cov + k * w.CWr * w.CW;
+      const float c00 = ck[ay.k0 * w.CW + ax.k0];
+      const float c01 = ck[ay.k0 * w.CW + ax.k1];
+      const float c10 = ck[ay.k1 * w.CW + ax.k0];
+      const float c11 = ck[ay.k1 * w.CW + ax.k1];
+      const float top = c00 + ax.frac * (c01 - c00);
+      const float bot = c10 + ax.frac * (c11 - c10);
+      cc[k] = top + ay.frac * (bot - top);
+    }
+    const float det = cc[0] * cc[2] - cc[1] * cc[1];
+    if (fabsf(det) > 1e-10f) {
+      const float inv_det = 1.0f / det;
+      ixx = inv_det * cc[2];
+      ixy = -inv_det * cc[1];
+      iyy = inv_det * cc[0];
+    }
+  }
+
+  const bool denoise = acc_rob != nullptr;
+  float power = 1.0f;
+  int rad = 1;
+  overwrite = false;
+  if (denoise) {
+    const float lar = acc_rob[(size_t)ay.acc * W + ax.acc];
+    const bool few = lar <= max_count;
+    power = few ? max_mult : 1.0f;
+    rad = few ? rad_max : 1;
+    overwrite = lar < max_count;
+  }
+  for (int k = 0; k < NCH; ++k) {
+    vals[k] = 0.0f;
+    accs[k] = 0.0f;
+  }
+  for (int di = -rr; di <= rr; ++di) {
+    const int i = ay.center + di;
+    const bool in_i = i >= 0 && i < H && (!denoise || abs(di) <= rad);
+    const float dist_y = (float)i - ay.pos;
+    const float* rrow = raw + (ay.q + di) * w.RW + ax.q;
+    const int pi = (ay.par + di) & 1;
+    for (int dj = -rr; dj <= rr; ++dj) {
+      const int j = ax.center + dj;
+      const bool inb = in_i && j >= 0 && j < W && (!denoise || abs(dj) <= rad);
+      const float dist_x = (float)j - ax.pos;
+      float z;
+      if (ISO) {
+        z = 2.0f * (dist_x * dist_x + dist_y * dist_y);
+      } else {
+        z = ixx * dist_x * dist_x + 2.0f * ixy * dist_x * dist_y +
+            iyy * dist_y * dist_y;
+      }
+      z = fmaxf(z, 0.0f);
+      if (denoise) z = z / power;
+      const float wgt = expf(-0.5f * z) * (inb ? 1.0f : 0.0f);
+      const float wc = wgt * rrow[dj];
+      if (G == 2) {
+        const int ch = (cfa >> (2 * (2 * pi + ((ax.par + dj) & 1)))) & 3;
+        for (int k = 0; k < NCH; ++k) {
+          if (ch == k) {
+            vals[k] += wc;
+            accs[k] += wgt;
+          }
+        }
+      } else {
+        vals[0] += wc;
+        accs[0] += wgt;
+      }
+    }
+  }
+}
+
 // Launch checks shared by the K5 and K5' entry points: sets L to the layout
 // of (Ts, s, F) and raises the dynamic shared-memory limit of `kernel` when
 // its bytes exceed the 48 KB default, which the card refuses beyond its own

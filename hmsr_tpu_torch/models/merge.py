@@ -23,9 +23,9 @@ burst than bands of 8 M pixels, at twice the launches and the same wall
 import numpy as np
 import torch
 
-from ..ops.cuda_merge import accumulate_tap, quad_form, scale_divisor
+from ..ops.cuda_merge import accumulate_tap, interp_cov, quad_form, scale_divisor
 from ..utils.types import DEFAULT_FLOAT
-from .merge_tiled import _interp_cov, merge_variant
+from .merge_tiled import merge_variant
 
 
 def lr_positions(hr, scale, tile_size):
@@ -75,7 +75,7 @@ def merge(comp_img, flow, covs, r, num, den, cfa_pattern, config, band_rows=512,
                 kmap_x, kmap_y = lr_mov_x - 0.5, lr_mov_y - 0.5
             else:
                 kmap_x, kmap_y = lr_mov_x / 2.0 - 0.5, lr_mov_y / 2.0 - 0.5
-            cxx, cxy, cyy = _interp_cov(covs, kmap_y, kmap_x)
+            cxx, cxy, cyy = interp_cov(covs, kmap_y, kmap_x)
             inv_det = 1.0 / (cxx * cyy - cxy * cxy)     # unguarded, as in JAX
             inv = (inv_det * cyy, -inv_det * cxy, inv_det * cxx)
         center_i, center_j = lr_mov_y.to(torch.int64), lr_mov_x.to(torch.int64)

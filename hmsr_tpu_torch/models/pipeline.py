@@ -1,31 +1,41 @@
-"""The end-to-end burst pipeline, ``scan`` and ``chunked`` forms (twin of
-:mod:`hmsr_tpu.models.pipeline`).
+"""The end-to-end burst pipeline in the ``scan``, ``chunked``, ``fused`` and
+``vmapped`` forms (twin of :mod:`hmsr_tpu.models.pipeline`).
 
 Reference init once (grey, pyramid, tiles, gradients, Hessians, robustness
 reference stats), then the compared frames, then the reference-frame merge
 (with the accumulated-robustness denoiser when it is enabled) and the
-border-strip refill + divide. In grey mode (``mode: grey``) a frame is its
-own grey image and the accumulators have one plane. The accumulators are
-``(c, round(s H), round(s W))`` at any scale s.
+refill + divide. In grey mode (``mode: grey``) a frame is its own grey
+image and the accumulators have one plane. The accumulators are ``(c,
+round(s H), round(s W))`` at any scale s.
 
 - ``scan`` (``tpu.pipeline`` "auto" or "scan"): a Python loop over the
   frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
   covariances -> merge into ``(num, den)`` in place: K5 at an integer
   scale, the gather merge (:func:`.merge.merge`, plain torch) at a
-  fractional one.
+  fractional one; then the reference merge and the border-strip refill.
+  "auto" is the scan form, the JAX package's choice on its TPU.
 - ``chunked``: the same analysis for every frame first, its flows,
   robustness maps and covariances stacked; then one burst-fused merge (K5')
   per chunk of ``tpu.merge_chunk`` frames (default 5; the last chunk is
   shorter). The result is bit-identical to ``scan``. Integer scales only:
   a fractional one raises ``ValueError``, as in the JAX package.
+- ``fused``: the same stacked analysis, then the whole burst and the
+  reference frame in one launch of K6 and a refill per group of the
+  accumulators, interior included (:mod:`.merge_fused`: per B-row slab with
+  ``tpu.fused_impl: slab``, the default; per (B, B) tile with any other
+  value). At a fractional scale it runs the scan form, as the JAX package
+  does (its fused merges need the tiled geometry).
+- ``vmapped``: the stacked analysis, ``acc_r`` the sum of the stacked
+  robustness maps, then the scan form's merges frame by frame, reference
+  merge and border-strip refill: the scan image.
 
 With ``grey_method: decimating`` (Bayer mode) the alignment runs on the
 half-resolution grey image and each flow is moved to the raw tile grid
 (:func:`flow_to_raw_grid`) before robustness and merge.
 
 Everything runs on the one ``device`` given to :func:`make_pipeline`; there
-is no fallback to another device or to another implementation: whatever the
-slice lacks raises ``NotImplementedError``. The stages of the loop
+is no fallback to another device or to another implementation: an unknown
+form raises ``NotImplementedError``. The stages of the loop
 (:func:`init_reference`, :func:`frame_step`, :func:`merge_reference`,
 :func:`normalize_image`) are shared with the sharded pipeline
 (:mod:`hmsr_tpu_torch.parallel.sharded`).
@@ -41,23 +51,34 @@ from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
 from .merge import merge
+from .merge_fused import merge_burst_slab, merge_burst_tiled
 from .merge_tiled import (check_merge_config, integer_scale, merge_ref_tiled,
                           merge_tiled, merge_variant)
 from .robustness import compute_robustness, init_robustness
 
-PIPELINES = ("auto", "scan", "chunked")
+PIPELINES = ("auto", "scan", "chunked", "fused", "vmapped")
 
 
 def check_supported(config):
-    """Raise ``NotImplementedError`` for a pipeline form outside the port,
-    and ``ValueError`` for the chunked form at a fractional scale."""
+    """Raise ``NotImplementedError`` for an unknown pipeline form, and
+    ``ValueError`` for the chunked form at a fractional scale."""
     mode = config.get("tpu", {}).get("pipeline", "auto")
     if mode not in PIPELINES:
-        raise NotImplementedError(f"tpu.pipeline={mode!r}: only the scan and "
-                                  f"chunked pipelines are ported")
+        raise NotImplementedError(f"tpu.pipeline={mode!r}: the forms are "
+                                  f"{', '.join(PIPELINES)}")
     if mode == "chunked" and not integer_scale(config):
         raise ValueError("tpu.pipeline=chunked requires an integer scale "
                          "(tiled merge geometry)")
+
+
+def pipeline_form(config):
+    """The form :func:`run_pipeline` runs: ``tpu.pipeline``, with "auto"
+    the scan form and "fused" at a fractional scale too (the JAX package's
+    ``fused = pipe_mode == "fused" and _use_tiled(config)``)."""
+    mode = config.get("tpu", {}).get("pipeline", "auto")
+    if mode == "auto" or (mode == "fused" and not integer_scale(config)):
+        return "scan"
+    return mode
 
 
 def select_merge(config):
@@ -181,7 +202,8 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     check_supported(config)
     device = resolve_device(device)
     debug_mode = bool(config.debug)
-    chunked = config.get("tpu", {}).get("pipeline", "auto") == "chunked"
+    form = pipeline_form(config)
+    stacked = form != "scan"            # every frame analysed before any merge
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     accumulate_r = denoise or bool(config.robustness.save_mask)
 
@@ -193,38 +215,49 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
                                             white_balance)
 
     merge_frame = select_merge(config)
-    num = torch.zeros(accum_shape(config, ref_img.shape), dtype=DEFAULT_FLOAT,
-                      device=device)
-    den = torch.zeros_like(num)
     acc_r = torch.zeros(ref_img.shape, dtype=DEFAULT_FLOAT, device=device) \
         if accumulate_r else None
+    if form != "fused":
+        num = torch.zeros(accum_shape(config, ref_img.shape), dtype=DEFAULT_FLOAT,
+                          device=device)
+        den = torch.zeros_like(num)
     flows, rmaps, covs_list = [], [], []
     for frame in comp_imgs:
         flow, r, covs = frame_step(frame, align_state, ref_stats, config,
                                    cfa_pattern, white_balance)
-        if acc_r is not None:
+        if acc_r is not None and form != "vmapped":
             acc_r = acc_r + r
-        if chunked:
+        if stacked:
             covs_list.append(covs)
         else:
             merge_frame(frame, flow, covs, r, num, den, cfa_pattern, config)
-        if debug_mode or chunked:
+        if debug_mode or stacked:
             flows.append(flow)
             rmaps.append(r)
     # the stacks replace the per-frame lists, so that no frame's maps are
-    # held twice (the chunked analysis peaks at the stacks)
+    # held twice (the stacked analysis peaks at the stacks)
     flow_stack = torch.stack(flows).to(DEFAULT_FLOAT) if flows else None
     r_stack = torch.stack(rmaps) if rmaps else None
     del flows, rmaps
-    if chunked and flow_stack is not None:
-        covs_stack = torch.stack(covs_list)
-        del covs_list
+    covs_stack = torch.stack(covs_list) if covs_list else None
+    del covs_list
+    if form == "vmapped" and acc_r is not None and r_stack is not None:
+        acc_r = r_stack.sum(0)          # a reduction, as JAX's jnp.sum
+    if form == "chunked" and flow_stack is not None:
         _merge_burst_chunked(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack,
                              num, den, cfa_pattern, config)
+    elif form == "vmapped" and flow_stack is not None:
+        for f in range(len(comp_imgs)):
+            merge_frame(comp_imgs[f], flow_stack[f], covs_stack[f], r_stack[f], num,
+                        den, cfa_pattern, config)
+    if form == "fused":
+        image = merge_burst_fused(ref_img, estimate_kernels(ref_img, config),
+                                  comp_imgs, flow_stack, covs_stack, r_stack,
+                                  cfa_pattern, config, acc_r)
+    else:
         del covs_stack
-
-    merge_reference(ref_img, num, den, cfa_pattern, config, acc_r)
-    image = normalize_image(num, den)
+        merge_reference(ref_img, num, den, cfa_pattern, config, acc_r)
+        image = normalize_image(num, den)
 
     debug = {}
     if debug_mode and flow_stack is not None:
@@ -233,6 +266,28 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     if acc_r is not None:
         debug["accumulated_robustness"] = acc_r
     return image, debug
+
+
+def merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack, r_stack,
+                      cfa_pattern, config, acc_r=None):
+    """The fused form's merge: the stacked frames and the reference frame
+    (with its covariances ``ref_covs``) through K6, then the refill per
+    B-row slab (``tpu.fused_impl: slab``, the default) or per (B, B) tile
+    (any other value); the ``(round(s H), round(s W), c)`` image. A burst
+    of the reference alone (no stacks) merges no compared frame."""
+    denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
+    if flow_stack is None:
+        H, W = ref_img.shape
+        ny, nx = (-(-n // int(config.block_matching.tuning.tile_size)) for n in (H, W))
+        flow_stack = ref_img.new_zeros((0, ny, nx, 2))
+        r_stack = ref_img.new_zeros((0, H, W))
+    if covs_stack is None:
+        covs_stack = ref_covs.new_zeros((0, *ref_covs.shape))
+    slab = config.get("tpu", {}).get("fused_impl", "slab") == "slab"
+    fused_impl = merge_burst_slab if slab else merge_burst_tiled
+    image = fused_impl(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack, ref_img,
+                       ref_covs, cfa_pattern, config, acc_rob=acc_r if denoise else None)
+    return image.permute(1, 2, 0)
 
 
 def make_pipeline(config, cfa_pattern, white_balance, device="cuda"):

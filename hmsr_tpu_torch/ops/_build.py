@@ -39,7 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: argtypes of every C entry point (pointers and the stream as c_void_p).
+_F = ctypes.c_float
+#: argtypes of every C entry point (pointers and the stream as c_void_p,
+#: floats as c_float).
 SIGNATURES = {
     "hmsr_block_match": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                          _I, _P, _P],
@@ -56,6 +58,8 @@ SIGNATURES = {
     "hmsr_merge_burst": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I,
                          _I, _I, _I, _I, _I, _I, _P],
     "hmsr_merge_layout": [_I, _I, _I, _I, _I, _P],
+    "hmsr_merge_fused": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "hmsr_cta_probe": [_I, _P, _I, _P, _I, _P],
     "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
 }

@@ -5,7 +5,11 @@ Pixels whose accumulated weight is below ``STARVED_DEN`` are re-normalized
 from the 5x5 neighbourhood sums of well-fed ``(num, den)``, twice. With
 ``refill_border=B`` the refill runs only on the four B-wide border strips,
 each extracted with an 8-px margin, which is exact against the full-image
-refill (starvation is a border phenomenon).
+refill where starvation is a border phenomenon (the scan, chunked and
+vmapped pipelines). The fused pipeline's merges normalize per group
+instead (:func:`normalize_groups`): each B-row slab
+(``models/merge_slab.py``) or each (B, B) tile (``models/merge_fused.py``)
+gets the full refill, interior included, with zero context past its edges.
 """
 
 import torch
@@ -17,6 +21,8 @@ STARVED_DEN = 1e-4
 _ITERS = 2
 REFILL_BORDER = 32
 _REFILL_MARGIN = 8
+#: tile rows normalized together by normalize_groups
+_GROUP_TILE_ROWS = 16
 
 
 def _box5(x):
@@ -61,3 +67,26 @@ def normalize_accum(num, den, refill_border=None):
                 num[..., :, w - M:], den[..., :, w - M:])[..., :, M - B:]
             return img
     return _strip_image(num, den)
+
+
+def normalize_groups(num, den, B, tiles=False):
+    """``(c, nty*B, ntx*B)`` accumulators -> image, each B-row slab (or each
+    (B, B) tile with ``tiles``) refilled and divided on its own, as
+    :func:`normalize_accum` without ``refill_border`` on that group alone.
+    Evaluated :data:`_GROUP_TILE_ROWS` tile rows at a time (the groups are
+    independent), which bounds the temporaries."""
+    c, h, w = num.shape
+    out = torch.empty_like(num)
+    for y0 in range(0, h, B * _GROUP_TILE_ROWS):
+        y1 = min(y0 + B * _GROUP_TILE_ROWS, h)
+        nt = (y1 - y0) // B
+        if tiles:
+            def split(x):
+                return x[:, y0:y1].reshape(c, nt, B, w // B, B).permute(1, 3, 0, 2, 4)
+            img = _strip_image(split(num), split(den)).permute(2, 0, 3, 1, 4)
+        else:
+            def split(x):
+                return x[:, y0:y1].reshape(c, nt, B, w).permute(1, 0, 2, 3)
+            img = _strip_image(split(num), split(den)).permute(1, 0, 2, 3)
+        out[:, y0:y1] = img.reshape(c, y1 - y0, w)
+    return out

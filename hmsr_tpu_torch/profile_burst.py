@@ -8,7 +8,8 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
-``--pipeline``: scan, or chunked with chunks of 5; ``--mode grey``:
+``--pipeline``: scan, chunked with chunks of 5, fused (the slab refill) or
+vmapped; ``--mode grey``:
 ``bench.py``'s grey cell, the frames taken as grey images; ``--scale``: the
 output scale, with ``bench.py``'s mutations of its x3 and x1 cells at 3
 and 1, :data:`SCALE_CELLS`) once to warm up,
@@ -58,7 +59,8 @@ from .synthetic import (BENCH_CELLS, CFA_RGGB, WB, affine_curves, burst_config,
 
 STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
           "compute_robustness", "estimate_kernels", "merge_tiled", "merge",
-          "_merge_burst_chunked", "merge_ref_tiled", "normalize_accum")
+          "_merge_burst_chunked", "merge_burst_fused", "merge_ref_tiled",
+          "normalize_accum")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
 
 #: scales whose ``bench.py`` cell mutates more than the scale
@@ -69,7 +71,8 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.
                 "ica_fused_kernel": cuda_ica.ica_fused,
                 "warp_kernel": cuda_warp.upscale_warp,
                 "merge_kernel": cuda_merge.merge_accumulate,
-                "merge_burst_kernel": cuda_merge.merge_burst_accumulate}
+                "merge_burst_kernel": cuda_merge.merge_burst_accumulate,
+                "merge_fused_kernel": cuda_merge.merge_fused_accumulate}
 #: stage -> (hand-written kernel, its launches per burst from that stage);
 #: None stands for "every launch of the burst".
 LAUNCHED_BY = {
@@ -78,6 +81,7 @@ LAUNCHED_BY = {
     "init_robustness": (("warp_kernel", 2),),
     "merge_tiled": (("merge_kernel", None),),
     "_merge_burst_chunked": (("merge_burst_kernel", None),),
+    "merge_burst_fused": (("merge_fused_kernel", None),),
 }
 
 
@@ -135,7 +139,8 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=4000)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--pipeline", choices=("scan", "chunked"), default="scan")
+    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused", "vmapped"),
+                    default="scan")
     ap.add_argument("--mode", choices=("bayer", "grey"), default="bayer")
     ap.add_argument("--scale", type=float, default=2.0)
     ap.add_argument("--out", default=None, help="also write the table here")

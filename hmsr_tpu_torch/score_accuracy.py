@@ -2,11 +2,14 @@
 
 Run from the root of a checkout::
 
-    python3 -m hmsr_tpu_torch.score_accuracy [--device cuda] [--out accuracy.json]
+    python3 -m hmsr_tpu_torch.score_accuracy [--device cuda] [--pipeline scan]
+        [--out accuracy.json]
 
 The truth and robustness-value sections of the JAX package's
 ``tools/score_accuracy.py``, with the port's pipeline
-(:func:`hmsr_tpu_torch.models.pipeline.make_pipeline`, scan) on the bursts
+(:func:`hmsr_tpu_torch.models.pipeline.make_pipeline`, ``tpu.pipeline``
+``--pipeline``: scan by default; ``fused`` is the form the JAX tool runs on
+the CPU, through which ``ACCURACY_r05.json`` was scored) on the bursts
 of :mod:`hmsr_tpu_torch.io.synthetic` (the same bursts as the JAX package's,
 bit for bit):
 
@@ -42,10 +45,13 @@ OCCLUSION_SIZE, OCCLUSION_FRAMES = 384, 12   # section 2's burst
 SNR = 56.0                                   # the bright tier: Ts=16
 
 
-def build_config(h, w):
+def build_config(h, w, pipeline="scan"):
     """x2 Bayer, the denoiser off, the SNR-based entries resolved at the
-    bright tier (``tools/score_accuracy.py``'s configuration)."""
-    return burst_config((h, w), SNR)
+    bright tier (``tools/score_accuracy.py``'s configuration), the
+    ``tpu.pipeline`` form ``pipeline``."""
+    c = burst_config((h, w), SNR)
+    c["tpu"] = {"pipeline": pipeline}
+    return c
 
 
 def run_pipeline(ref, comps, config, device):
@@ -58,12 +64,14 @@ def run_pipeline(ref, comps, config, device):
     return np.nan_to_num(img.cpu().numpy(), nan=0.0)
 
 
-def score_truth(size=TRUTH_SIZE, frames=TRUTH_FRAMES, device="cuda", seed=7):
+def score_truth(size=TRUTH_SIZE, frames=TRUTH_FRAMES, device="cuda", seed=7,
+                pipeline="scan"):
     """Section 1: ``{"size", "frames", "crop_px", "psnr_db", "seconds"}``
-    (``seconds``: the pipeline call, synchronised by the read-back)."""
+    (``seconds``: the pipeline call, synchronised by the read-back), through
+    the ``pipeline`` form."""
     ref, comps, truth, _ = make_synthetic_burst(size, size, n_frames=frames, alpha=ALPHA,
                                                 beta=BETA, seed=seed, max_shift=2.0)
-    config = build_config(size, size)
+    config = build_config(size, size, pipeline)
     t0 = time.perf_counter()
     img = run_pipeline(ref, comps, config, device)
     dt = time.perf_counter() - t0
@@ -73,9 +81,11 @@ def score_truth(size=TRUTH_SIZE, frames=TRUTH_FRAMES, device="cuda", seed=7):
             "psnr_db": compute_psnr(img[inner], truth[inner]), "seconds": dt}
 
 
-def score_robustness(size=OCCLUSION_SIZE, frames=OCCLUSION_FRAMES, device="cuda", seed=21):
+def score_robustness(size=OCCLUSION_SIZE, frames=OCCLUSION_FRAMES, device="cuda", seed=21,
+                     pipeline="scan"):
     """Section 2: the ghost and global PSNRs with robustness on and off,
-    and the ghost region's share of the scored pixels."""
+    and the ghost region's share of the scored pixels, through the
+    ``pipeline`` form."""
     ref, comps, truth, ghost = make_occlusion_burst(size, size, n_frames=frames,
                                                     alpha=ALPHA, beta=BETA, seed=seed,
                                                     max_shift=2.0)
@@ -85,7 +95,7 @@ def score_robustness(size=OCCLUSION_SIZE, frames=OCCLUSION_FRAMES, device="cuda"
     out = {"size": [size, size], "frames": frames,
            "ghost_fraction": float(ghost[inner].mean())}
     for label, enabled in (("on", True), ("off", False)):
-        c = build_config(size, size)
+        c = build_config(size, size, pipeline)
         c.robustness.enabled = enabled
         if not enabled:
             c.robustness.save_mask = False
@@ -99,15 +109,18 @@ def score_robustness(size=OCCLUSION_SIZE, frames=OCCLUSION_FRAMES, device="cuda"
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused", "vmapped"),
+                    default="scan")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    result = {"alpha": ALPHA, "beta": BETA, "device": str(device)}
-    truth = score_truth(device=device)
+    result = {"alpha": ALPHA, "beta": BETA, "device": str(device),
+              "pipeline": args.pipeline}
+    truth = score_truth(device=device, pipeline=args.pipeline)
     result["truth"] = truth
     print(f"[truth {TRUTH_SIZE}x{TRUTH_SIZE} x{TRUTH_FRAMES}] PSNR = "
           f"{truth['psnr_db']:.3f} dB ({truth['seconds']:.2f} s)", flush=True)
-    rob = score_robustness(device=device)
+    rob = score_robustness(device=device, pipeline=args.pipeline)
     result["robustness_value"] = rob
     for label in ("on", "off"):
         print(f"[occlusion {OCCLUSION_SIZE}x{OCCLUSION_SIZE} x{OCCLUSION_FRAMES} "

@@ -1,7 +1,9 @@
 """Accuracy against ground truth: the port's numpy copies of the synthetic
 bursts (``io/synthetic.py``) and metrics (``utils/metrics.py``) against the
-JAX package's, and ``hmsr_tpu_torch.score_accuracy`` on the CPU against
-``tools/score_accuracy.py``'s JAX scoring of the same small bursts.
+JAX package's, ``hmsr_tpu_torch.score_accuracy`` on the CPU against
+``tools/score_accuracy.py``'s JAX scoring of the same small bursts (scan),
+and the port's fused form against the JAX package's record
+``ACCURACY_r05.json``, which was scored through its fused form.
 """
 
 import importlib.util
@@ -141,3 +143,22 @@ def test_score_robustness_against_jax():
             assert abs(got[key] - want) <= 0.01, (region, label)
             assert abs(record[key] - want) <= 1e-3, (key, record[key], want)
     assert got["psnr_ghost_on_db"] > got["psnr_ghost_off_db"] + 10
+
+
+def test_score_robustness_fused_against_record():
+    """The robustness-value scores of the port's ``fused`` form (the slab
+    refill) on the CPU on the record's burst (384^2, 12 frames, seed 21),
+    each within 0.01 dB of ``ACCURACY_r05.json``, which the JAX tool scored
+    through its CPU default, the same form (``tests/score_jax_fused.py``
+    reproduces it). With robustness on, the fused form's per-slab refill of
+    the interior pixels that no compared frame reached scores the ghost
+    region above the scan form's record ``ACCURACY_JAX_SCAN.json``."""
+    with open(os.path.join(ROOT, "ACCURACY_r05.json")) as f:
+        record = json.load(f)["robustness_value"]
+    with open(os.path.join(ROOT, "ACCURACY_JAX_SCAN.json")) as f:
+        scan = json.load(f)["robustness_value"]
+    got = score_accuracy.score_robustness(384, 12, "cpu", pipeline="fused")
+    for key in ("psnr_ghost_on_db", "psnr_global_on_db", "psnr_ghost_off_db",
+                "psnr_global_off_db"):
+        assert abs(got[key] - record[key]) <= 0.01, (key, got[key], record[key])
+    assert got["psnr_ghost_on_db"] > scan["psnr_ghost_on_db"] + 0.3

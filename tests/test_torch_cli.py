@@ -298,7 +298,7 @@ def test_graft_entry_against_jax():
     pc.debug = True
     _, dbg_t = make_pipeline(pc, DEFAULT_CFA, [1.0, 1.0, 1.0], "cpu")(*args)
     assert np.abs(n(dbg_t["flow"]) - np.asarray(dbg_j["flow"])).max() < 1e-2
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_new_modules_import_no_reference():

@@ -103,4 +103,4 @@ def test_process_arrays_denoiser(burst, which):
         < 1e-3 * len(comps)
     assert float(dbg_t["accumulated_robustness"].max()) < 8
     _check_finishing(img_t, img_j)
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7

@@ -217,7 +217,7 @@ def _check_burst_against_pallas(variant):
     assert got[0] is num and got[1] is den          # accumulated in place
     for g, wnt in zip(got, want):
         assert rel_err(g, np.asarray(wnt)[:, :s * h, :s * w]) <= 1e-6
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 BURST_CASES = [(3, 16, 2), (2, 32, 2), (4, 16, 3), (2, 64, 2), (2, 16, 1), (2, 32, 1),
@@ -263,7 +263,7 @@ def test_merge_burst_wrapper_checks():
     with pytest.raises(ValueError):      # flow tiles that do not cover the frame
         cuda_merge.merge_burst_accumulate(t(comp), t(flow), t(cov), t(r), num, den,
                                           DEFAULT_CFA, 8, 2)
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_cpu_wrapper_launches_no_kernel(frames):
@@ -272,7 +272,7 @@ def test_cpu_wrapper_launches_no_kernel(frames):
     covs = torch.eye(2)[[0, 0, 1], [0, 1, 1]][:, None, None].expand(3, H // 2, W // 2)
     cuda_merge.merge_accumulate(t(comp), torch.zeros(4, 6, 2), covs.contiguous(),
                                 torch.ones(H, W), num, den, DEFAULT_CFA, 16, 2)
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
     assert float(den.sum()) > 0
     with pytest.raises(ValueError):      # accumulators of the wrong size
         cuda_merge.merge_accumulate(t(comp), torch.zeros(4, 6, 2), covs.contiguous(),
@@ -290,7 +290,7 @@ def test_merge_wrapper_plane_count():
         with pytest.raises(ValueError):
             cuda_merge.merge_accumulate(*args, acc, acc.clone(), DEFAULT_CFA, 16, 2,
                                         grey=grey)
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 @pytest.mark.parametrize("scale", [1, 2, 3])

@@ -67,4 +67,4 @@ def test_pipeline_matches_composed_oracle(iso):
     assert finite[inner].all(), "NaNs off the border frame"
     np.testing.assert_allclose(img[finite], want_img[finite], atol=2e-3)
     assert np.mean(np.abs(img[finite] - want_img[finite])) < 2e-5
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7

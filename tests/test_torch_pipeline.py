@@ -85,7 +85,7 @@ def test_e2e_against_jax_scan(cfg):
         d_acc = np.abs(n(dbg_t["accumulated_robustness"])
                        - np.asarray(dbg_j["accumulated_robustness"]))
         assert d_acc.max() < 1e-3 * len(comps)
-    assert kernel_counts() == (0,) * 6     # CPU tensors: plain versions only
+    assert kernel_counts() == (0,) * 7     # CPU tensors: plain versions only
 
 
 @pytest.mark.parametrize("cfg", ["128-grey", "128-x3-denoiser"])
@@ -102,7 +102,7 @@ def test_chunked_equals_scan_variants(cfg):
     img_c, dbg_c = make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std, diff)
     assert torch.equal(img_c, img_s)
     assert torch.equal(dbg_c["accumulated_robustness"], dbg_s["accumulated_robustness"])
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_chunked_against_jax_scan_and_port_scan():
@@ -128,7 +128,7 @@ def test_chunked_against_jax_scan_and_port_scan():
     assert np.abs(n(dbg_c["flow"]) - np.asarray(dbg_j["flow"])).max() < 1e-2
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_port_imports_no_jax(tmp_path):
@@ -245,22 +245,26 @@ def test_chip_smoke_fails_without_cuda():
 PROCESS_CHANGES = ["mesh"]
 
 
-@pytest.mark.parametrize("change", ["fused_pipeline", "vmapped_pipeline"] + PROCESS_CHANGES)
+@pytest.mark.parametrize("change", ["unknown_pipeline", "chunked_fractional"]
+                         + PROCESS_CHANGES)
 def test_unported_configurations_raise(change):
-    """What the port lacks raises ``NotImplementedError`` in
-    ``make_pipeline``; a mesh, which only the process layer reads, raises
-    ``RuntimeError`` in ``process_arrays`` before any work when no
-    ``torch.distributed`` process group of its size runs (it never falls
-    back to one device)."""
+    """An unknown ``tpu.pipeline`` form raises ``NotImplementedError`` in
+    ``make_pipeline`` (every form of the JAX package is ported); the chunked
+    form at a fractional scale raises ``ValueError``, as in the JAX package;
+    a mesh, which only the process layer reads, raises ``RuntimeError`` in
+    ``process_arrays`` before any work when no ``torch.distributed``
+    process group of its size runs (it never falls back to one device)."""
     config = small_config(128)
-    if change == "vmapped_pipeline":
-        config.tpu.pipeline = "vmapped"
-    elif change == "fused_pipeline":
-        config.tpu.pipeline = "fused"
+    if change == "unknown_pipeline":
+        config.tpu.pipeline = "pipelined"
+    elif change == "chunked_fractional":
+        config.tpu.pipeline = "chunked"
+        config.scale = 1.5
     elif change == "mesh":
         config.tpu.mesh = [2, 1]
-    expected = (RuntimeError, "torch.distributed") if change == "mesh" \
-        else (NotImplementedError, None)
+    expected = {"mesh": (RuntimeError, "torch.distributed"),
+                "chunked_fractional": (ValueError, "integer scale")}.get(
+                    change, (NotImplementedError, "pipelined"))
     with pytest.raises(expected[0], match=expected[1]):
         if change in PROCESS_CHANGES:
             from hmsr_tpu_torch.models.process import process_arrays

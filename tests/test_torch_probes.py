@@ -45,7 +45,7 @@ def test_cta_probe_plain(kind, n):
             want = want * np.float32(1.000001) + np.float32(0.000001)
     np.testing.assert_array_equal(got.numpy(), want)
     assert cuda_probes.cta_probe.launches == 0
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_probe_wrapper_checks():
@@ -139,10 +139,13 @@ def _c_entry_points():
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_signature_matches_c_entry_point(name):
     """Each ctypes signature has the C entry point's parameters, a pointer
-    (c_void_p) where C takes one and a c_int where C takes an int."""
+    (c_void_p) where C takes one, a c_int where C takes an int and a
+    c_float where C takes a float."""
     params = _c_entry_points()[name]
-    want = [_build._P if "*" in p else _build._I for p in params]
-    assert [p for p in params if "*" not in p and not p.startswith("int ")] == []
+    want = [_build._P if "*" in p else _build._F if p.startswith("float ") else _build._I
+            for p in params]
+    assert [p for p in params
+            if "*" not in p and not p.startswith(("int ", "float "))] == []
     assert _build.SIGNATURES[name] == want
 
 

@@ -116,6 +116,6 @@ def test_robustness_disabled(burst):
 def test_cpu_wrapper_launches_no_kernel():
     st = torch.rand(3, 8, 8)
     cuda_warp.upscale_warp(st, 2, 16, torch.zeros(1, 1, 2), (16, 16))
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
     with pytest.raises(ValueError):   # flow does not cover the output
         cuda_warp.upscale_warp(st, 2, 8, torch.zeros(1, 1, 2), (16, 16))

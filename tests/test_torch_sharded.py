@@ -107,7 +107,7 @@ def test_banded_merge_plain(frames, variant, scale):
         assert torch.equal(got_n[:, :out_h], want_n)
         assert torch.equal(got_d[:, :out_h], want_d)
         assert not got_n[:, out_h:].any() and not got_d[:, out_h:].any()
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_banded_merge_checks(frames):

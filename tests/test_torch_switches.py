@@ -58,7 +58,7 @@ def test_e2e_switch_against_jax_scan(cfg):
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
     assert np.abs(n(dbg_t["robustness"]) - np.asarray(dbg_j["robustness"])).max() < 1e-3
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_chunked_equals_scan_decimating():
@@ -78,7 +78,7 @@ def test_chunked_equals_scan_decimating():
         ref, comps, std, diff)
     assert torch.equal(img_c, img_s)
     assert all(torch.equal(dbg_c[k], dbg_s[k]) for k in dbg_s)
-    assert kernel_counts() == (0,) * 6
+    assert kernel_counts() == (0,) * 7
 
 
 def test_chunked_fractional_scale_raises():

@@ -82,7 +82,8 @@ def kernel_counts():
     return (cuda_ica.block_match.launches, cuda_ica.ica_steps.launches,
             cuda_ica.ica_fused.launches, cuda_warp.upscale_warp.launches,
             cuda_merge.merge_accumulate.launches,
-            cuda_merge.merge_burst_accumulate.launches)
+            cuda_merge.merge_burst_accumulate.launches,
+            cuda_merge.merge_fused_accumulate.launches)
 
 
 def block_imports(monkeypatch, *names):
