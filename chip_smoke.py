@@ -11,10 +11,10 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the seven kernels (K1 block matching, K2 ICA Gauss-Newton steps,
+1. build the eight kernels (K1 block matching, K2 ICA Gauss-Newton steps,
    K3 fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge, K6 the
-   fused form's burst-and-reference merge) and the probes P1 and P2 from
-   ``hmsr_tpu_torch/csrc``;
+   fused form's burst-and-reference merge, K7 its refill and divide) and
+   the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
    instantiation of a templated kernel: K5 and K5' have one per variant,
@@ -22,7 +22,7 @@ and power limit:
    isotropic kernel), the launch layouts that the library computes for K1
    per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c) and K5/K5' per
    (Ts, scale, variant), and the static SASS instructions of every
-   instantiation of K1-K6 (``cuobjdump -sass`` of the library), in all
+   instantiation of K1-K7 (``cuobjdump -sass`` of the library), in all
    and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
@@ -49,9 +49,11 @@ and power limit:
    chunked equal to scan on the card; then the same slice in grey mode,
    with the isotropic kernel and both (card scan against CPU scan, card
    chunked equal to card scan, launch counts asserted);
-4. the scan pipeline on a 20-frame 3000x4000 Bayer burst made on the card
-   from a seed, x2, warm-up + 3 timed runs; kernel launch counts of every
-   run asserted against what the path implies; finite interior;
+4. the scan pipeline (``tpu.pipeline: scan``; the line before it names the
+   form the default ``auto`` resolves to, fused) on a 20-frame 3000x4000
+   Bayer burst made on the card from a seed, x2, warm-up + 3 timed runs;
+   kernel launch counts of every run asserted against what the path
+   implies; finite interior;
 5. ``process_arrays`` on the same burst (Monte-Carlo noise curves on the
    card, device finishing), scan and chunked (chunks of 5), warm-up + 3
    timed runs each, launch counts of every run asserted; the two images
@@ -64,14 +66,16 @@ and power limit:
    sum of the grey image and its pyramid level 2) against their plain
    versions (:mod:`hmsr_tpu_torch.probe_cta_cost`);
 8. the ``bench.py`` cells grey, x3 and x1 on the phase 4 burst, the
-   pipeline alone: grey (``mode: grey``) scan warm-up + 3 timed runs, then
+   pipeline alone on the scan form: grey (``mode: grey``) scan warm-up + 3
+   timed runs, then
    chunked once (equal to scan) and ``process_arrays`` once with the device
    finishing (6000x8000x3); x3 (scale 3, the accumulated-robustness
    denoiser in the reference merge) and x1 (scale 1, robustness off)
    warm-up + 3 timed runs; launch counts, image shapes, finite interiors
    and peak memory of every run;
-9. the pipeline's switches (:data:`SWITCHES`): (a) the 512x512 8-frame
-   slice on the card against the CPU with phase 3's bounds at x1.5 (Bayer,
+9. the pipeline's switches (:data:`SWITCHES`, on the scan form): (a) the
+   512x512 8-frame slice on the card against the CPU with phase 3's bounds
+   at x1.5 (Bayer,
    grey, with the merge denoiser), x2.5, the decimating grey (also chunked
    equal to scan), bilinear and bicubic flow upscaling, and
    ``process_arrays`` with the Gauss and with the median frame-count
@@ -91,14 +95,16 @@ and power limit:
 10. the user's entry (:func:`phase_entry`): (a) the phase 4 burst written as
    an ``.npz`` bundle (``np.savez``, uncompressed) under ``build/``; (b) the
    port's CLI (``hmsr_tpu_torch.run_handheld``) on it in a subprocess at
-   ``verbose=2``: exit 0, the kernels' launches of the main path, no JAX
-   loaded, an 8000x6000 8-bit RGB PNG and its ``.rob.png``; its split as
-   the CLI prints it (load, pipeline, finishing, save) and its wall; (c)
-   ``process`` on the bundle in-process once per finishing route (the
-   default ``auto``: the device chain; the device chain with tonemapping;
-   ``host``; ``host`` with tonemapping, cv2 made unavailable so that it is
-   the plain smoothstep), launch counts asserted, each host route within
-   1e-5 of its device route, the finishing timed apart; (d) the graft
+   ``verbose=2``, the default configuration (``auto``: the fused form):
+   exit 0, the kernels' launches of that form (:data:`DEFAULT_FORM`), peak
+   memory under its :data:`MAX_PEAK_GIB`, no JAX loaded, an 8000x6000 8-bit
+   RGB PNG and its ``.rob.png``; its split as the CLI prints it (load,
+   pipeline, finishing, save) and its wall; (c) ``process`` on the bundle
+   in-process once per finishing route (the default ``auto``: the device
+   chain; the device chain with tonemapping; ``host``; ``host`` with
+   tonemapping, cv2 made unavailable so that it is the plain smoothstep),
+   launch counts and peaks asserted (the fused form), each host route
+   within 1e-5 of its device route, the finishing timed apart; (d) the graft
    entry (:mod:`hmsr_tpu_torch.graft_entry`) on the card against the CPU;
    (e) ``unprocess_isp`` on a 3000x4000x3 image on the card against the
    CPU with the same generators (1e-6); (f) RAW10 and RAW12 unpacking of
@@ -127,13 +133,18 @@ and power limit:
    variants and the reference merge's denoiser at Ts=16, then scales 1 and
    3 on 1024x1024 (5 frames) in every variant and with the denoiser: 1e-5
    relative, and 1e-5 relative against K5' over the same frames into zeros
-   followed by the plain reference merge; device time, host us per call,
-   the plain version's time, the bound, registers and spills; (b) the
+   followed by the plain reference merge; the values on either side of
+   the refill's starvation threshold counted; device time, host us per
+   call, the plain version's time, the bound, registers and spills; then
+   K7 (``csrc/refill.cu``) against ``normalize_groups`` and the crop, bit
+   for bit, on accumulators with starved values and blocks at K6's padded
+   geometry, per slab and per tile at Ts=16, 32 and 64 x2, grey, and x1
+   and x3 on 1024x1024, with the same numbers; (b) the
    512x512 8-frame slice in the fused (slab and tiled) and vmapped forms,
    card against CPU with phase 3's bounds, in Bayer, grey, iso and with the
    denoiser, vmapped also against the card's scan, fused at x1.5 equal to
    scan; (c) the phase 4 burst in the fused form, warm-up + 3 timed runs
-   (K6 1, K5 0, K5' 0) and ``process_arrays`` once, peak memory against
+   (K6 1, K7 1, K5 0, K5' 0) and ``process_arrays`` once, peak memory against
    ``MAX_PEAK_GIB["fused"]``; x3 (the denoiser) fused once; vmapped once,
    against phase 4's scan image; (d) the fused form's PSNRs on the card,
    each within 0.05 dB of ``ACCURACY_r05.json`` (the JAX package's fused
@@ -141,7 +152,8 @@ and power limit:
 
 The line before the last is a JSON object with one entry per kernel (K5
 and K5' with their four variants under ``variants``, K5 with its banded
-branch under ``banded``, K6 with its cases under ``cases``); the last line is
+branch under ``banded``, K6 and K7 with their cases under ``cases``); the
+last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package ``hmsr_tpu``.
 """
@@ -173,11 +185,11 @@ from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_siz
                                              init_alignment)
 from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
-from hmsr_tpu_torch.models.merge_tiled import integer_scale
-from hmsr_tpu_torch.models.pipeline import (accum_shape, make_pipeline, pipeline_form,
-                                             to_grey)
+from hmsr_tpu_torch.models.pipeline import (_use_tiled, accum_shape, make_pipeline,
+                                             pipeline_form, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
+from hmsr_tpu_torch.ops.accumfix import STARVED_DEN
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
                                       affine_curves, burst_config, burst_snr,
@@ -203,6 +215,8 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K6": ("K6 burst-and-reference fused merge (every frame, then the reference)",
            cuda_merge.merge_fused_accumulate, "hmsr_tpu_torch/csrc/merge_fused.cu",
            "hmsr_tpu/models/merge_slab.py:31"),
+    "K7": ("K7 fused form's refill and divide per slab or tile", cuda_merge.refill_groups,
+           "hmsr_tpu_torch/csrc/refill.cu", "hmsr_tpu/models/merge_slab.py:383"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
 #: counts stay out of the path's counts)
@@ -216,9 +230,12 @@ MAIN_TS = 16            # the bright main path's tile size
 CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5)
 BRIGHT_LAUNCHES = {
-    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0},
-    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0},
-    "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1}}
+    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0,
+             "K7": 0},
+    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0,
+                "K7": 0},
+    "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1,
+              "K7": 1}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB); fused, also per
@@ -226,8 +243,12 @@ BRIGHT_LAUNCHES = {
 #: alone (the stacks, K6's padded num/den, 1.16 GB, written while the last
 #: run's 0.58 GB image is still held)
 MAX_PEAK_GIB = {"scan": 6.0, "chunked": 8.0, "fused": 7.5}
+#: the form the default ``tpu.pipeline: auto`` runs at the main path (x2, the
+#: tiled merge): the JAX package's choice off the TPU
+DEFAULT_FORM = "fused"
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
 FUSED_KERNEL = "merge_fused_kernel"     # K6, merge_fused_kernel<G,ISO>
+REFILL_KERNEL = "refill_kernel"         # K7
 #: the variants of K5 and K5' (grey, iso), the main path's first
 MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
                   "bayer-iso": (False, True), "grey-iso": (True, True)}
@@ -277,7 +298,7 @@ def sass_counts(bases):
 
 def phase_build(raw_shape):
     """Phase 1: build; print each kernel's ptxas resources, the launch
-    layouts of K1-K5' and the static SASS counts of K1-K6. Returns the
+    layouts of K1-K5' and the static SASS counts of K1-K7. Returns the
     ptxas report."""
     _build.library()
     log(f"phase 1 built {len(KERNELS)} kernels of the path and {len(PROBES)} probes in "
@@ -328,7 +349,7 @@ def phase_build(raw_shape):
             f"(4 pixels each), window {g['window']}x{g['window']}, "
             f"{g['smem_bytes']} B dynamic shared memory")
     bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
-             *MERGE_KERNELS.values(), FUSED_KERNEL}
+             *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -862,7 +883,7 @@ def expected_launches(ref, config, n_cmp):
     else after K1); one K4 per frame and two at init (none with robustness
     off); one K5 per frame
     (scan, vmapped), or one K5' per chunk of ``tpu.merge_chunk`` frames
-    (chunked), or one K6 per burst (fused), and none of them at a
+    (chunked), or one K6 and one K7 per burst (fused), and none of them at a
     fractional scale (the gather merge, plain torch; fused runs the scan
     form there). With the decimating grey the levels are those of the
     half-size grey image."""
@@ -878,11 +899,11 @@ def expected_launches(ref, config, n_cmp):
     form = pipeline_form(config)
     fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), n_cmp))
     k4 = n_cmp + 2 if config.robustness.enabled else 0
-    tiled = integer_scale(config)
+    tiled = _use_tiled(config)
     return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
             "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
             "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
-            "K6": 1 if form == "fused" else 0}
+            "K6": 1 if form == "fused" else 0, "K7": 1 if form == "fused" else 0}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -926,6 +947,9 @@ def phase_full(frames, device, n_runs=3):
     std, diff = affine_curves()
     snr = burst_snr(frames[0], std)
     config = burst_config((h, w), snr)
+    log(f"phase 4: tpu.pipeline auto (the default) resolves to the "
+        f"{pipeline_form(config)} form at this burst; this phase pins scan")
+    config = scan_config(config)
     log(f"phase 4 scan pipeline, burst {tuple(frames.shape)}: SNR {snr:.1f} -> Ts="
         f"{config.block_matching.tuning.tile_size}, scale {config.scale}")
     ref, comps = frames[0], frames[1:]
@@ -1117,7 +1141,7 @@ def phase_cells(frames, device):
     snr = burst_snr(frames[0], std)
     res = {}
     for cell, mutate in BENCH_CELLS.items():
-        config = burst_config((h, w), snr)
+        config = scan_config(burst_config((h, w), snr))
         mutate(config)
         res[cell] = run_cell(frames, config, f"{cell} scan", device)
         if cell != "grey":
@@ -1184,9 +1208,9 @@ ACCURACY_TOL_DB = 0.05
 
 def switch_config(shape, snr, name, debug=False):
     """The ``bench.py`` configuration with the switch ``name`` of
-    :data:`SWITCHES`."""
+    :data:`SWITCHES`, on the scan form."""
     sw = SWITCHES[name]
-    config = burst_config(shape, snr, scale=sw.get("scale", 2), debug=debug)
+    config = scan_config(burst_config(shape, snr, scale=sw.get("scale", 2), debug=debug))
     config.mode = sw.get("mode", "bayer")
     config.grey_method = sw.get("grey_method", "FFT")
     config.block_matching.tuning.flow_upscale_mode = sw.get("flow_upscale_mode", "nearest")
@@ -1368,7 +1392,8 @@ RUN_CLI = (
     "    'K2': cuda_ica.ica_steps.launches, 'K3': cuda_ica.ica_fused.launches,\n"
     "    'K4': cuda_warp.upscale_warp.launches, 'K5': cuda_merge.merge_accumulate.launches,\n"
     "    \"K5'\": cuda_merge.merge_burst_accumulate.launches,\n"
-    "    'K6': cuda_merge.merge_fused_accumulate.launches}))\n"
+    "    'K6': cuda_merge.merge_fused_accumulate.launches,\n"
+    "    'K7': cuda_merge.refill_groups.launches}))\n"
     "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
 #: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
 #: takes the device chain)
@@ -1439,7 +1464,7 @@ def phase_cli(path, out, shape):
         raise AssertionError(f"phase 10 CLI exited with {res.returncode}:\n"
                              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
     got = json.loads(re.search(r"^LAUNCHES (.+)$", res.stdout, re.M).group(1))
-    check_counts(got, BRIGHT_LAUNCHES["scan"], "phase 10 CLI")
+    check_counts(got, BRIGHT_LAUNCHES[DEFAULT_FORM], "phase 10 CLI")
     h, w = shape
     for name in (out, out[:-len(".png")] + ".rob.png"):
         if png_header(name) != (2 * w, 2 * h, 8, 2):
@@ -1449,6 +1474,9 @@ def phase_cli(path, out, shape):
     peak = int(re.search(r"^PEAK (\d+)$", res.stdout, re.M).group(1))
     imports, in_main = map(float, re.search(r"^TIMES (\S+) (\S+)$", res.stdout,
                                             re.M).groups())
+    if peak > MAX_PEAK_GIB[DEFAULT_FORM] * 2**30:
+        raise AssertionError(f"phase 10 CLI: peak memory {peak / 2**30:.3f} GiB > "
+                             f"{MAX_PEAK_GIB[DEFAULT_FORM]} GiB")
     log(f"phase 10 (b) CLI split (verbose=2): {split_text(split)} [{CARD}]")
     log(f"phase 10 (b) CLI subprocess: exit 0, wall {wall:.4f} s: imports {imports:.4f} s, "
         f"main() {in_main:.4f} s, the rest interpreter start and exit; launches {got}; "
@@ -1479,7 +1507,11 @@ def phase_routes(path, shape, device):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - held
-        check_counts(counts(), BRIGHT_LAUNCHES["scan"], f"phase 10 route {name}")
+        check_counts(counts(), BRIGHT_LAUNCHES[pipeline_form(config)],
+                     f"phase 10 route {name}")
+        if peak > MAX_PEAK_GIB[pipeline_form(config)] * 2**30:
+            raise AssertionError(f"phase 10 route {name}: peak memory "
+                                 f"{peak / 2**30:.3f} GiB")
         check_image(image, (2 * shape[0], 2 * shape[1], 3), f"phase 10 route {name}")
         if image.dtype != torch.float32 or image.device.type != torch.device(device).type:
             raise AssertionError(f"phase 10 route {name}: image {image.dtype} on "
@@ -1489,8 +1521,8 @@ def phase_routes(path, shape, device):
         res[name] = dict(s=dt, split_ms=split, peak_bytes=peak)
         log(f"phase 10 (c) process, finishing {name} "
             f"({'device' if on_device else 'host'} chain): {dt:.4f} s; {split_text(split)}; "
-            f"peak memory {peak / 2**30:.3f} GiB above what the script held; launches as "
-            f"phase 4 [{CARD}]")
+            f"peak memory {peak / 2**30:.3f} GiB above what the script held; launches "
+            f"those of the {pipeline_form(config)} form [{CARD}]")
     for host, dev in ROUTE_PAIRS.items():
         d = float((images[host] - images[dev]).abs().max())
         log(f"phase 10 (c) {host} against {dev}: max|d| {d:.3e} (held to {ROUTE_TOL})")
@@ -1693,10 +1725,12 @@ def sharded_launches(ref, config, mesh, n_padded):
     """The launches of one rank's run of the sharded pipeline: those of its
     ``n_padded / n_frames`` frames (:func:`expected_launches`), no K5 when
     its band starts past the image."""
-    from hmsr_tpu_torch.parallel.sharded import band_geometry
-    expect = expected_launches(ref, config, n_padded // mesh.n_frames)
+    from hmsr_tpu_torch.parallel.sharded import band_geometry, banded_tiled
+    expect = expected_launches(ref, scan_config(copy.deepcopy(config)),
+                               n_padded // mesh.n_frames)
     rows = band_geometry(config, tuple(ref.shape), mesh.n_space)
-    if mesh.space * rows >= accum_shape(config, tuple(ref.shape))[1]:
+    if not banded_tiled(config) or \
+            mesh.space * rows >= accum_shape(config, tuple(ref.shape))[1]:
         expect["K5"] = 0
     return expect
 
@@ -1706,7 +1740,9 @@ def band_counts():
 
 
 def slice_config(size=512):
-    config = burst_config((size, size), 40, debug=True)
+    """The 512^2 slice of phase 11, on the scan form (the single-device
+    pipeline its ranks are held against)."""
+    config = scan_config(burst_config((size, size), 40, debug=True))
     config.robustness.save_mask = True
     return config
 
@@ -1748,7 +1784,7 @@ def sharded_rank(rank, slice_meshes, full_mesh, n_runs):
         out["slice"][shape] = rec
     del frames, padded, image
     frames = make_burst(3000, 4000, 20, 0, device)
-    config = burst_config((3000, 4000), burst_snr(frames[0], std))
+    config = scan_config(burst_config((3000, 4000), burst_snr(frames[0], std)))
     ref = frames[0].clone()
     padded, weights = pad_frames(frames[1:], full_mesh[0])
     del frames
@@ -2010,6 +2046,10 @@ def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, 
     err_n = nan_max_abs(n_k, n_p) / float(n_p.abs().max())
     err_d = nan_max_abs(d_k, d_p) / float(d_p.abs().max())
     err = max(nan_max_abs(n_k, n_p), nan_max_abs(d_k, d_p))
+    # K7 refills where den <= STARVED_DEN: the pixels where K6 and its plain
+    # version fall on either side of that threshold
+    flips = int(((d_k > STARVED_DEN) != (d_p > STARVED_DEN)).sum())
+    starved, n_values = int((d_p <= STARVED_DEN).sum()), d_p.numel()
     del n_p, d_p
     n_ch = 1 if grey else 3
     n_s = torch.zeros((n_ch, s * H, s * W), device=device)
@@ -2034,7 +2074,9 @@ def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, 
            f"{(H, W)} -> {shape}")
     log(f"  K6 {tag}: rel max|d| against its plain version num {err_n:.3e} den "
         f"{err_d:.3e}; against K5' + reference merge num {err_sn:.3e} den "
-        f"{err_sd:.3e}; {time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"{err_sd:.3e}; den > {STARVED_DEN} decided otherwise than the plain version "
+        f"at {flips} of {n_values} values ({starved} starved in the plain version); "
+        f"{time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]}); {inst} {regs['registers']} registers, spills "
         f"{regs['spill_stores']}/{regs['spill_loads']} B [{CARD}]")
     if not max(err_n, err_d, err_sn, err_sd) <= 1e-5:
@@ -2042,6 +2084,7 @@ def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, 
                              f"against the plain version, {err_sn:.3e} / {err_sd:.3e} "
                              f"against K5' + the reference merge")
     return dict(Ts=Ts, s=s, variant=variant, denoise=denoise, frames=F, err=err,
+                rel_err=max(err_n, err_d, err_sn, err_sd), starved_flips=flips,
                 ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0],
                 bound_by=bnd[1], registers=regs["registers"])
 
@@ -2055,6 +2098,81 @@ def phase_fused_kernel(device, ptxas, seed=12):
     rows += [check_fused_kernel(device, (1024, 1024), Ts, s, v, dn, F_SMALL, rng, gen,
                                 ptxas) for Ts, s, v, dn in FUSED_SMALL_CASES]
     return rows
+
+
+#: (Ts, scale, grey, tiles, raw shape) of K7's cases in phase 12 (a): the
+#: main path's accumulators first
+REFILL_CASES = [(16, 2, False, False, (3000, 4000)), (16, 2, False, True, (3000, 4000)),
+                (32, 2, False, False, (3000, 4000)), (32, 2, False, True, (3000, 4000)),
+                (64, 2, False, False, (3000, 4000)), (64, 2, False, True, (3000, 4000)),
+                (16, 2, True, False, (3000, 4000)), (16, 1, False, False, (1024, 1024)),
+                (16, 1, False, True, (1024, 1024)), (16, 3, False, False, (1024, 1024)),
+                (16, 3, False, True, (1024, 1024))]
+
+
+def starved_accumulators(gen, shape, device):
+    """num/den of a fused merge's kind at ``shape``: den in (0, 20), 7 % of
+    the values and every 3x3 block of a sparse grid starved (below
+    ``STARVED_DEN``; blocks need both passes of the refill), num = den x an
+    image value in [0, 1]."""
+    den = torch.rand(shape, generator=gen, device=device) * 20.0
+    den[torch.rand(shape, generator=gen, device=device) < 0.07] = 0.0
+    blocks = torch.rand((shape[0], shape[1] // 3, shape[2] // 3), generator=gen,
+                        device=device) < 0.02
+    blocks = blocks.repeat_interleave(3, 1).repeat_interleave(3, 2)
+    den[:, :blocks.shape[1], :blocks.shape[2]][blocks] = 5e-5
+    num = den * torch.rand(shape, generator=gen, device=device)
+    return num.contiguous(), den.contiguous()
+
+
+def check_refill_kernel(device, Ts, s, grey, tiles, raw_shape, gen, ptxas):
+    """K7 against its plain version (``normalize_groups`` and the crop) on
+    the card, bit for bit, on :func:`starved_accumulators` at K6's padded
+    geometry; timed. Returns the row."""
+    H, W = raw_shape
+    B = Ts * s
+    shape = cuda_merge.fused_accum_shape(raw_shape, Ts, s, grey)
+    num, den = starved_accumulators(gen, shape, device)
+    args = (num, den, B, H * s, W * s, tiles)
+    out_k = cuda_merge.refill_groups(*args)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out_p = cuda_merge.refill_plain(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    ms_p = t0.elapsed_time(t1)
+    err = nan_max_abs(out_k, out_p)
+    n_starved = int((den <= STARVED_DEN).sum())
+    del out_p
+    tk = timed(lambda: cuda_merge.refill_groups(*args))
+    bnd = bound(nbytes(num, den, out_k), 0)
+    regs = ptxas[REFILL_KERNEL]
+    tag = (f"{'grey' if grey else 'Bayer'} Ts={Ts} x{s} {'tiles' if tiles else 'slabs'} "
+           f"of B={B}, {shape} -> {tuple(out_k.shape)}")
+    log(f"  K7 {tag}: max|d| against its plain version {err:.3e} ({n_starved} starved "
+        f"values); {time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {REFILL_KERNEL} {regs['registers']} registers, spills "
+        f"{regs['spill_stores']}/{regs['spill_loads']} B [{CARD}]")
+    if err != 0.0:
+        raise AssertionError(f"K7 {tag}: max|d| {err:.3e} against normalize_groups")
+    return dict(Ts=Ts, s=s, grey=grey, tiles=tiles, err=err, ms=tk.ms,
+                host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0], bound_by=bnd[1],
+                registers=regs["registers"])
+
+
+def phase_refill_kernel(device, ptxas, seed=13):
+    """Phase 12 (a), K7's part. Returns the rows of every case."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return [check_refill_kernel(device, Ts, s, grey, tiles, shape, gen, ptxas)
+            for Ts, s, grey, tiles, shape in REFILL_CASES]
+
+
+def scan_config(config):
+    """``config`` pinned to the scan form (``tpu.pipeline: scan``; the
+    default ``auto`` runs :data:`DEFAULT_FORM`), for the phases that hold
+    the scan path and its records."""
+    config["tpu"] = {"pipeline": "scan"}
+    return config
 
 
 def form_config(config, form):
@@ -2073,7 +2191,7 @@ def phase_fused_slice(device, size=512, n_frames=8, seed=2):
     std, diff = affine_curves()
     k6 = {}
     for variant, (grey, iso, denoise) in FUSED_SLICE_VARIANTS.items():
-        base = burst_config((size, size), 40, debug=True)
+        base = scan_config(burst_config((size, size), 40, debug=True))
         base.mode = "grey" if grey else "bayer"
         base.merging.kernel = "iso" if iso else "steerable"
         base.accumulated_robustness_denoiser.enabled = denoise
@@ -2232,10 +2350,33 @@ def fused_entry(rows, launches, slice_k6, ptxas):
         "host_us": main["host_us"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "registers": ptxas[merge_instance(FUSED_KERNEL, False, False)]["registers"],
+        "rel_err": max(e["rel_err"] for e in rows),
+        "starved_flips": sum(e["starved_flips"] for e in rows),
         "slice_launches": slice_k6,
         "cases": [{k: e[k] for k in ("Ts", "s", "variant", "denoise", "frames", "ms",
                                      "host_us", "plain_ms", "bound_ms", "bound_by",
-                                     "registers", "err")} for e in rows]}
+                                     "registers", "err", "rel_err")} for e in rows]}
+
+
+def refill_entry(rows, launches, ptxas):
+    """K7's entry of the ``kernels`` line: the main path's case (the
+    3x6016x8000 accumulators of the fused bright burst, Ts=16 x2, per
+    slab), its launches per run of the fused bright burst, and the rows of
+    every case of phase 12 (a)."""
+    main = rows[0]
+    name, _, src, rep = KERNELS["K7"]
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "replaces_also": "hmsr_tpu/models/merge_fused.py:356",
+        "replaces_kind": "XLA (no pl.pallas_call)",
+        "launches": launches, "launches_in": "the fused bright burst (phase 12 (c)), "
+        "per run", "max_abs_err": max(e["err"] for e in rows), "ms": main["ms"],
+        "host_us": main["host_us"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "registers": ptxas[REFILL_KERNEL]["registers"],
+        "cases": [{k: e[k] for k in ("Ts", "s", "grey", "tiles", "ms", "host_us",
+                                     "plain_ms", "bound_ms", "bound_by", "err")}
+                  for e in rows]}
 
 
 def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
@@ -2310,9 +2451,10 @@ def main():
     del frames
     log("phase 11 the multi-device path on torch.distributed (every rank on this card)")
     banded = phase_sharded(device, full_image)
-    log("phase 12 the fused and vmapped forms: K6, the 512^2 slice, the full burst, "
-        "accuracy")
+    log("phase 12 the fused and vmapped forms: K6, K7, the 512^2 slice, the full "
+        "burst, accuracy")
     fused_rows = phase_fused_kernel(device, ptxas)
+    refill_rows = phase_refill_kernel(device, ptxas)
     slice_k6 = phase_fused_slice(device)
     frames = make_burst(3000, 4000, 20, 0, device)
     fused = phase_fused_full(frames, device, full_image)
@@ -2326,6 +2468,9 @@ def main():
         if key == "K6":
             entries.append(fused_entry(fused_rows, fused["launches"]["K6"], slice_k6,
                                        ptxas))
+            continue
+        if key == "K7":
+            entries.append(refill_entry(refill_rows, fused["launches"]["K7"], ptxas))
             continue
         # per frame of the main path: the Ts=16 launches, each as often as a
         # frame of the path launches it

@@ -105,6 +105,16 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
                : "memory");
 }
 
+// 16-byte asynchronous copy from global to shared memory (both 16-byte
+// aligned); src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // ICA Gauss-Newton steps (K2, and the steps of K3 after its search)
 // ---------------------------------------------------------------------------
@@ -480,6 +490,15 @@ struct __align__(16) MergeAxis {
   float dist[3];  // tap coordinate minus the moved centre, per d
   float in[3];    // 1 where tap d lies in the frame, else 0
   float pad_;
+
+  // merge_stage stages this table type as K5 and K5' take it (kFused: as
+  // K6 does)
+  static constexpr bool kFused = false;
+  // merge_stage's table entry of this type (K5, K5': the axis as it is)
+  template <int ISO>
+  __device__ __forceinline__ static MergeAxis from(const MergeAxis& a) {
+    return a;
+  }
 };
 
 // Staged window sizes of a block of `rows` HR rows: the raw window is Ts+3
@@ -538,21 +557,68 @@ inline MergeLayout merge_layout(int Ts, int s, int F) {
   return L;
 }
 
+// p / n for 0 <= p < 2^22 and n >= 1, by an approximate reciprocal inv of
+// n: (p + 0.5) / n lies at least 0.5 / n from an integer, more than the
+// product's error of a few ulps. Three instructions where the integer
+// division by a run-time n takes about twenty.
+__device__ __forceinline__ int rcp_div(int p, float inv) {
+  return (int)(((float)p + 0.5f) * inv);
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p / n in merge_stage (p >= 0): integer division, or rcp_div where the
+// table type asks for it (K6).
+template <bool RCP>
+__device__ __forceinline__ int stage_div(int p, int n, float inv) {
+  return RCP ? rcp_div(p, inv) : p / n;
+}
+
+// floor(a / b) for |a| < 2^21 and b >= 1 (merge_stage's window origins):
+// floordiv, or where RCP floor((a + 0.5) * inv), inv an approximate
+// reciprocal of b, for the reason rcp_div gives.
+template <bool RCP>
+__device__ __forceinline__ int stage_floordiv(int a, int b, float inv) {
+  return RCP ? (int)floorf(((float)a + 0.5f) * inv) : floordiv(a, b);
+}
+
+// K6's staged row stride for a window n floats wide: whole 16-byte chunks
+// from the aligned column at or before the window's first (merge_stage).
+__host__ __device__ inline int merge_fused_stride(int n) { return 4 * ((n + 6) / 4); }
+
+// Floats of one frame staged for K6: merge_buffer_floats with the raw and
+// covariance rows at merge_fused_stride.
+template <int G, int ISO>
+__host__ __device__ inline int merge_fused_buffer_floats(int Ts, int s, int rows) {
+  const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
+  const int n = 12 * (rows + Ts * s) + w.RWr * merge_fused_stride(w.RW) +
+                (ISO ? 0 : 3 * w.CWr * merge_fused_stride(w.CW)) + w.RR * Ts;
+  return (n + 3) / 4 * 4;
+}
+
 // Row (or column) r_loc of tile t along an axis of n raw pixels: f is the
 // tile's flow, S/ph and S2/ph2 the raw and covariance window origins and
 // phases, qbase/q2base the first staged raw and covariance window rows
 // (columns: 0) and rbase the first staged robustness row (column).
-template <int G, int ISO>
+//
+// RCP: the integer divisions by s and s*G through their approximate
+// reciprocals inv_s, inv_sg (stage_div; K6), else by integer division.
+template <int G, int ISO, bool RCP = false>
 __device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
                                                 int n, float f, int S, int ph,
                                                 int S2, int ph2, int qbase,
                                                 int q2base, int rbase,
-                                                bool ok) {
+                                                bool ok, float inv_s = 0.0f,
+                                                float inv_sg = 0.0f) {
   const int B = Ts * s;
   const float sf = (float)s;
   const int R = t * B + r_loc;
   MergeAxis a;
-  const int q = (r_loc + ph) / s;  // non-negative operands
+  const int q = stage_div<RCP>(r_loc + ph, s, inv_s);  // non-negative operands
   const int center = S + 1 + q;
   const float lr = ((float)R + 0.5f) / sf;
   const float lr_mov = lr + f;
@@ -560,7 +626,7 @@ __device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
   a.q2 = 0;
   a.frac = 0.0f;
   if (!ISO) {
-    const int q2 = (r_loc + ph2) / (s * G);
+    const int q2 = stage_div<RCP>(r_loc + ph2, s * G, inv_sg);
     a.frac = (lr_mov / (float)G - 0.5f) - (float)(S2 + 1 + q2);
     a.q2 = q2 - q2base;
   }
@@ -573,7 +639,7 @@ __device__ __forceinline__ MergeAxis merge_axis(int r_loc, int t, int Ts, int s,
   }
   a.pad_ = 0.0f;
   a.rob = (lr_mov >= 0.0f && lr_mov < (float)n && ok)
-              ? min(R / s, n - 1) - rbase : -1;
+              ? min(stage_div<RCP>(R, s, inv_s), n - 1) - rbase : -1;
   return a;
 }
 
@@ -628,17 +694,22 @@ __device__ __forceinline__ float2 merge_flow(const float* __restrict__ flow,
 
 // Stages one frame's share of HR tile (ty, tx) at flow fl, HR rows r0 ..
 // r0+rows-1 of the tile, into buf (merge_buffer_floats<G, ISO>(Ts, s, rows)
-// floats). All threads of the block take part. The tables are written
-// directly; the windows are copied with cp.async (zero-filled outside the
-// frame), except the covariance entries at index -1, which are extrapolated
-// here (border tiles only). merge_stage_wait() completes the copies for the
-// block.
-template <int G, int ISO>
+// floats; K6: merge_fused_buffer_floats). All threads of the block take
+// part. The tables are written directly, each entry Axis::from(merge_axis(
+// ...)) (Axis: MergeAxis for K5 and K5', FusedAxis for K6, both 48 bytes);
+// the windows are copied with cp.async (zero-filled outside the frame),
+// except the covariance entries at index -1, which are extrapolated here
+// (border tiles only). merge_stage_wait() completes the copies for the
+// block. Axis::kFused (K6) divides through approximate reciprocals, leaves
+// the window copies to the threads past the warps that build the tables, pads
+// the raw and covariance rows to 16-byte chunks and copies 16 bytes at a
+// time where vec allows it.
+template <int G, int ISO, typename Axis = MergeAxis>
 __device__ __forceinline__ void merge_stage(
     float* buf, const float* __restrict__ comp, int H, int W, float2 fl,
     const float* __restrict__ covs, int gh, int gw,
     const float* __restrict__ rob, int ty, int tx, int r0, int rows, int Ts,
-    int s) {
+    int s, int vec = 0) {
   const int B = Ts * s;
   const int sg = s * G;
   const float sf = (float)s;
@@ -648,11 +719,14 @@ __device__ __forceinline__ void merge_stage(
   // ---- tile-uniform values: window origins, clipped origins, phases
   const int WIN = Ts + 4;
   const int PAD = WIN + 1;
+  constexpr bool RCP = Axis::kFused;
+  const float inv_s = RCP ? rcp_approx(sf) : 0.0f;
+  const float inv_sg = RCP ? rcp_approx((float)sg) : 0.0f;
   const int base_y = ty * B + (int)floorf(__fadd_rn(0.5f, __fmul_rn(sf, fy)));
-  const int Sy = floordiv(base_y, s) - 1;
+  const int Sy = stage_floordiv<RCP>(base_y, s, inv_s) - 1;
   const int ph_y = base_y - s * (Sy + 1);
   const int base_x = tx * B + (int)floorf(__fadd_rn(0.5f, __fmul_rn(sf, fx)));
-  const int Sx = floordiv(base_x, s) - 1;
+  const int Sx = stage_floordiv<RCP>(base_x, s, inv_s) - 1;
   const int ph_x = base_x - s * (Sx + 1);
   const int Syc = clampi(Sy, -PAD, H + PAD - WIN);
   const int Sxc = clampi(Sx, -PAD, W + PAD - WIN);
@@ -664,68 +738,138 @@ __device__ __forceinline__ void merge_stage(
     const float halfsg = 0.5f * (float)sg;
     const int base2_y = ty * B + (int)floorf(__fsub_rn(
                                      __fadd_rn(0.5f, __fmul_rn(sf, fy)), halfsg));
-    S2y = floordiv(base2_y, sg) - 1;
+    S2y = stage_floordiv<RCP>(base2_y, sg, inv_sg) - 1;
     ph2_y = base2_y - sg * (S2y + 1);
     const int base2_x = tx * B + (int)floorf(__fsub_rn(
                                      __fadd_rn(0.5f, __fmul_rn(sf, fx)), halfsg));
-    S2x = floordiv(base2_x, sg) - 1;
+    S2x = stage_floordiv<RCP>(base2_x, sg, inv_sg) - 1;
     ph2_x = base2_x - sg * (S2x + 1);
     S2yc = clampi(S2y, -CPAD, gh + CPAD - CWIN);
     S2xc = clampi(S2x, -CPAD, gw + CPAD - CWIN);
   }
-  const int rbase_y = min(ty * Ts + r0 / s, H - 1);
+  const int rbase_y = min(ty * Ts + stage_div<RCP>(r0, s, inv_s), H - 1);
   const int rbase_x = min(tx * Ts, W - 1);
 
   const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
-  const int qbase = (r0 + ph_y) / s;
-  const int q2base = ISO ? 0 : (r0 + ph2_y) / sg;
-  MergeAxis* rowt = reinterpret_cast<MergeAxis*>(buf);
-  MergeAxis* colt = rowt + rows;
+  const int qbase = stage_div<RCP>(r0 + ph_y, s, inv_s);
+  const int q2base = ISO ? 0 : stage_div<RCP>(r0 + ph2_y, sg, inv_sg);
+  static_assert(sizeof(Axis) == sizeof(MergeAxis), "tables of 48-byte entries");
+  // K6 (RCP): the raw and covariance rows at strides of whole 16-byte
+  // chunks (merge_fused_stride), copied 16 bytes at a time from the aligned
+  // column at or before the window's where vec allows it (bit 0 raw, 1
+  // covariances, 2 robustness) and the window needs no clamping; off and
+  // off2 are then the window's first column in the staged rows
+  const int RWs = RCP ? merge_fused_stride(w.RW) : w.RW;
+  const int CWs = RCP ? merge_fused_stride(w.CW) : w.CW;
+  Axis* rowt = reinterpret_cast<Axis*>(buf);
+  Axis* colt = rowt + rows;
   float* raw = reinterpret_cast<float*>(colt + B);
-  float* cov = raw + w.RWr * w.RW;
-  float* rb = cov + 3 * w.CWr * w.CW;
+  float* cov = raw + w.RWr * RWs;
+  float* rb = cov + 3 * w.CWr * CWs;
   const int nr = min(rows, B - r0);
+  const int i0 = S2yc + 1 + q2base, j0 = S2xc + 1;
+  const bool raw16 = RCP && (vec & 1);
+  const bool cov16 = RCP && !ISO && (vec & 2) && i0 >= 0 && i0 + w.CWr <= gh &&
+                     j0 >= 0 && j0 + w.CW <= gw;
+  const bool rob16 = RCP && (vec & 4) && rbase_x + Ts <= W &&
+                     rbase_y + w.RR <= H;
+  const int off = raw16 ? (Sxc & 3) : 0;
+  const int off2 = cov16 ? (j0 & 3) : 0;
   for (int i = threadIdx.x; i < nr + B; i += blockDim.x) {
     if (i < nr) {
-      rowt[i] = merge_axis<G, ISO>(r0 + i, ty, Ts, s, H, fy, Sy, ph_y, S2y,
-                                   ph2_y, qbase, q2base, rbase_y, ok_tile);
+      rowt[i] = Axis::template from<ISO>(merge_axis<G, ISO, RCP>(
+          r0 + i, ty, Ts, s, H, fy, Sy, ph_y, S2y, ph2_y, qbase, q2base,
+          rbase_y, ok_tile, inv_s, inv_sg));
     } else {
-      colt[i - nr] = merge_axis<G, ISO>(i - nr, tx, Ts, s, W, fx, Sx, ph_x,
-                                        S2x, ph2_x, 0, 0, rbase_x, true);
+      colt[i - nr] = Axis::template from<ISO>(merge_axis<G, ISO, RCP>(
+          i - nr, tx, Ts, s, W, fx, Sx, ph_x, S2x, ph2_x, -off, -off2, rbase_x,
+          true, inv_s, inv_sg));
     }
   }
   // the raw window at the clipped origin, from the band's first row; zero
   // outside the frame
+  // the window copies' threads: all of them, or (K6) those past the warps
+  // that build the tables, where at least 64 are left
+  const int ne = (nr + B + 31) & ~31;
+  const bool split = RCP && (int)blockDim.x - ne >= 64;
+  const int t0 = split ? (int)threadIdx.x - ne : (int)threadIdx.x;
+  const int nt = split ? (int)blockDim.x - ne : (int)blockDim.x;
   const int RW = w.RW;
-  for (int p = threadIdx.x; p < w.RWr * RW; p += blockDim.x) {
-    const int y = Syc + qbase + p / RW;
-    const int x = Sxc + p % RW;
-    const bool in = y >= 0 && y < H && x >= 0 && x < W;
-    cp_async_f32(raw + p, in ? comp + (size_t)y * W + x : comp, in ? 4 : 0);
+  if (raw16) {
+    const int nc = RWs / 4;
+    const float inv_nc = rcp_approx((float)nc);
+    for (int p = t0 < 0 ? w.RWr * nc : t0; p < w.RWr * nc; p += nt) {
+      const int yq = rcp_div(p, inv_nc);
+      const int y = Syc + qbase + yq;
+      const int x = Sxc - off + 4 * (p - yq * nc);
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async_16(raw + yq * RWs + 4 * (p - yq * nc),
+                  in ? comp + (size_t)y * W + x : comp, in ? 16 : 0);
+    }
+  } else {
+    const float inv_rw = RCP ? rcp_approx((float)RW) : 0.0f;
+    for (int p = t0 < 0 ? w.RWr * RW : t0; p < w.RWr * RW; p += nt) {
+      const int yq = stage_div<RCP>(p, RW, inv_rw);
+      const int y = Syc + qbase + yq;
+      const int x = Sxc + p - yq * RW;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async_f32(raw + yq * RWs + p - yq * RW,
+                   in ? comp + (size_t)y * W + x : comp, in ? 4 : 0);
+    }
   }
   // covariance windows from row S2yc+1 (+ the band's first) and column
   // S2xc+1, padding resolved: cov_at is the edge-clamped entry, except at
   // index -1
-  if (!ISO) {
+  if (!ISO && cov16) {
+    const int nc = CWs / 4, CWr = w.CWr;
+    const float inv_nc = rcp_approx((float)nc);
+    const float inv_cwr = rcp_approx((float)CWr);
+    for (int p = t0 < 0 ? 3 * CWr * nc : t0; p < 3 * CWr * nc; p += nt) {
+      const int kr = rcp_div(p, inv_nc);  // plane k, row kr - k * CWr
+      const int k = rcp_div(kr, inv_cwr);
+      const int x = j0 - off2 + 4 * (p - kr * nc);
+      const float* src =
+          covs + ((size_t)k * gh + i0 + kr - k * CWr) * gw + x;
+      cp_async_16(cov + kr * CWs + 4 * (p - kr * nc), x < gw ? src : covs,
+                  x < gw ? 16 : 0);
+    }
+  } else if (!ISO) {
     const int CW = w.CW, CWr = w.CWr;
-    for (int p = threadIdx.x; p < 3 * CWr * CW; p += blockDim.x) {
-      const int k = p / (CWr * CW);
+    const float inv_cp = RCP ? rcp_approx((float)(CWr * CW)) : 0.0f;
+    const float inv_cw = RCP ? rcp_approx((float)CW) : 0.0f;
+    for (int p = t0 < 0 ? 3 * CWr * CW : t0; p < 3 * CWr * CW; p += nt) {
+      const int k = stage_div<RCP>(p, CWr * CW, inv_cp);
       const int e = p - k * CWr * CW;
-      const int i = S2yc + 1 + q2base + e / CW;
-      const int j = S2xc + 1 + e % CW;
+      const int eq = stage_div<RCP>(e, CW, inv_cw);
+      const int i = S2yc + 1 + q2base + eq;
+      const int j = S2xc + 1 + e - eq * CW;
       const float* cv = covs + (size_t)k * gh * gw;
+      float* dst = cov + (k * CWr + eq) * CWs + e - eq * CW;
       if (i == -1 || j == -1) {
-        cov[p] = cov_at(cv, gh, gw, i, j);
+        *dst = cov_at(cv, gh, gw, i, j);
       } else {
-        cp_async_f32(cov + p,
+        cp_async_f32(dst,
                      cv + (size_t)clampi(i, 0, gh - 1) * gw + clampi(j, 0, gw - 1),
                      4);
       }
     }
   }
-  for (int p = threadIdx.x; p < w.RR * Ts; p += blockDim.x) {
-    const int y = min(rbase_y + p / Ts, H - 1);
-    const int x = min(rbase_x + p % Ts, W - 1);
+  if (rob16) {
+    const int nc = Ts / 4;
+    const float inv_nc = rcp_approx((float)nc);
+    for (int p = t0 < 0 ? w.RR * nc : t0; p < w.RR * nc; p += nt) {
+      const int yq = rcp_div(p, inv_nc);
+      const int x = 4 * (p - yq * nc);
+      cp_async_16(rb + yq * Ts + x, rob + (size_t)(rbase_y + yq) * W + rbase_x + x,
+                  16);
+    }
+    return;
+  }
+  const float inv_ts = RCP ? rcp_approx((float)Ts) : 0.0f;
+  for (int p = t0 < 0 ? w.RR * Ts : t0; p < w.RR * Ts; p += nt) {
+    const int yq = stage_div<RCP>(p, Ts, inv_ts);
+    const int y = min(rbase_y + yq, H - 1);
+    const int x = min(rbase_x + p - yq * Ts, W - 1);
     cp_async_f32(rb + p, rob + (size_t)y * W + x, 4);
   }
 }
@@ -733,6 +877,18 @@ __device__ __forceinline__ void merge_stage(
 // Completes this thread's copies of merge_stage, then the block's.
 __device__ __forceinline__ void merge_stage_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Closes this thread's group of merge_stage copies (K6's ring of buffers).
+__device__ __forceinline__ void merge_stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Completes this thread's copies of every group but the newest, then the
+// block's: the buffer staged one group before the newest is ready.
+__device__ __forceinline__ void merge_stage_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
 }
 
@@ -826,6 +982,196 @@ __device__ __forceinline__ void merge_pixel(const float* buf, int rows, int Ts,
         accs[0] += wgt;
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6's frame loop (merge_fused.cu)
+// ---------------------------------------------------------------------------
+//
+// The same contribution as merge_pixel, with fewer instructions per pixel
+// and frame; merge_pixel (K5, K5') is left as it is, bit for bit.
+//   - The covariance lookup, determinant and inverse keep merge_pixel's
+//     operations (so a near-singular covariance, where the extrapolated
+//     border cells make one, gives the same inverse); 1/det is __frcp_rn, the
+//     correctly rounded reciprocal, which is the IEEE division's result.
+//   - The exponent's terms are shared and pre-scaled: with the inverse
+//     taken times -log2(e)/2, the term (ixx dx) dx and (2 ixy) dx per tap
+//     column, (iyy dy) dy per tap row, so that a tap's scaled exponent is one
+//     multiply-add and one add; a tap outside the frame gets -inf added to
+//     its row or column term (the table carries 0 or +inf), so its weight
+//     comes out 0 without a mask; iso: the tables' squared distances.
+//   - exp(-z/2) is then ex2.approx.ftz of the scaled exponent, clamped at 0
+//     (relative error ~2^-22 for the weights that matter; weights under
+//     2^-126 flush to 0).
+//   - The robustness weight r multiplies the pixel's sums once, not each
+//     tap.
+//   - Bayer: the 9 taps fall into 4 classes by whether their row and column
+//     offsets are odd, summed per class with contracted multiply-adds; the
+//     class sums go to the accumulators of the taps' floor parity (2 pi +
+//     pj: the class index XOR the centre's parities), 4 pairs per pixel
+//     kept over all frames; the CFA maps parities to channels once, after
+//     the last frame (merge_fused_channels). 27 predicated channel adds per
+//     pixel became 16 selects and 8 multiply-adds.
+// The exponent is rounded differently and the sums are taken in another
+// order than merge_plain's, so K6 agrees with its plain version to rounding
+// (within 1e-6 of the largest value at the main path's shapes), no longer
+// bit for bit.
+
+// merge_stage's table entry for K6: MergeAxis with the in-frame flags in
+// the form the exponent takes them.
+struct __align__(16) FusedAxis {
+  int q, q2, rob, par;
+  float frac;
+  float dist[3];
+  float x[3];  // steerable: 0 where tap d lies in the frame, +inf outside;
+               // iso: dist[d]^2 there, +inf outside
+  float pad_;
+
+  static constexpr bool kFused = true;
+  template <int ISO>
+  __device__ __forceinline__ static FusedAxis from(const MergeAxis& a) {
+    FusedAxis f;
+    f.q = a.q;
+    f.q2 = a.q2;
+    f.rob = a.rob;
+    f.par = a.par;
+    f.frac = a.frac;
+    for (int d = 0; d < 3; ++d) {
+      f.dist[d] = a.dist[d];
+      f.x[d] = a.in[d] != 0.0f ? (ISO ? a.dist[d] * a.dist[d] : 0.0f)
+                               : __int_as_float(0x7f800000);
+    }
+    f.pad_ = 0.0f;
+    return f;
+  }
+};
+
+// Accumulator pairs per pixel of K6's frame loop: one per floor parity of
+// the taps' raw pixel (Bayer), one in grey mode.
+__host__ __device__ constexpr int merge_fused_pairs(int G) { return G == 2 ? 4 : 1; }
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One frame's contribution at the pixel of row table entry ay and column
+// table entry ax of a tile staged by merge_stage<G, ISO, FusedAxis> into buf,
+// added to the pixel's sums nv (weighted values) and na (weights),
+// merge_fused_pairs(G) each.
+template <int G, int ISO>
+__device__ __forceinline__ void merge_fused_pixel(const float* buf, int rows,
+                                                  int Ts, int s,
+                                                  const FusedAxis& ay,
+                                                  const FusedAxis& ax,
+                                                  float* nv, float* na) {
+  const int B = Ts * s;
+  const MergeWindows w = merge_windows<G, ISO>(Ts, s, rows);
+  const int RW = merge_fused_stride(w.RW), CW = merge_fused_stride(w.CW);
+  const float* raw = buf + 12 * (rows + B);
+  const float* cov = raw + w.RWr * RW;
+  const float* rb = cov + (ISO ? 0 : 3 * w.CWr * CW);
+
+  // the exponent of tap (i, j) times -log2(e)/2: per tap column j, a[j]
+  // (its first term, or -inf outside the frame) and t[j] ((2 ixy) dx); per
+  // tap row i, b[i] (its last term, or -inf)
+  constexpr float K = -0.72134752044448170f;  // -log2(e) / 2
+  float a[3], t[3], b[3];
+  if (ISO) {
+    for (int d = 0; d < 3; ++d) {
+      a[d] = ax.x[d] * (2.0f * K);
+      b[d] = ay.x[d] * (2.0f * K);
+    }
+  } else {
+    float cc[3];
+    for (int k = 0; k < 3; ++k) {
+      const float* ck = cov + (k * w.CWr + ay.q2) * CW + ax.q2;
+      const float top = ck[0] + ax.frac * (ck[1] - ck[0]);
+      const float bot = ck[CW] + ax.frac * (ck[CW + 1] - ck[CW]);
+      cc[k] = top + ay.frac * (bot - top);
+    }
+    const float det = cc[0] * cc[2] - cc[1] * cc[1];
+    const float inv_det = __frcp_rn(det) * K;
+    const float ixx = inv_det * cc[2];
+    const float ixy2 = 2.0f * (-inv_det * cc[1]);
+    const float iyy = inv_det * cc[0];
+    for (int d = 0; d < 3; ++d) {
+      a[d] = __fmaf_rn(ixx * ax.dist[d], ax.dist[d], -ax.x[d]);
+      t[d] = ixy2 * ax.dist[d];
+      b[d] = __fmaf_rn(iyy * ay.dist[d], ay.dist[d], -ay.x[d]);
+    }
+  }
+  const float wr = (ay.rob >= 0 && ax.rob >= 0) ? rb[ay.rob * Ts + ax.rob]
+                                                : 0.0f;
+
+  // class sums, index 2 (di odd) + (dj odd), each from its first tap
+  constexpr int NP = merge_fused_pairs(G);
+  float sv[NP], sa[NP];
+  for (int di = -1; di <= 1; ++di) {
+    const float* rr = raw + (ay.q + 1 + di) * RW + ax.q + 1;
+    for (int dj = -1; dj <= 1; ++dj) {
+      float z;
+      if (ISO) {
+        z = a[dj + 1] + b[di + 1];
+      } else {
+        z = fminf(__fmaf_rn(t[dj + 1], ay.dist[di + 1], a[dj + 1]) + b[di + 1],
+                  0.0f);
+      }
+      const float e = ex2_approx(z);
+      const int k = G == 2 ? 2 * (di != 0) + (dj != 0) : 0;
+      // the first tap of class k in this order: (0,0), (0,-1), (-1,0), (-1,-1)
+      const bool first = G == 2 ? (k == 0 || (k == 1 && dj == -1) ||
+                                   (k == 2 && di == -1) ||
+                                   (di == -1 && dj == -1))
+                                : (di == -1 && dj == -1);
+      sv[k] = first ? e * rr[dj] : __fmaf_rn(e, rr[dj], sv[k]);
+      sa[k] = first ? e : sa[k] + e;
+    }
+  }
+  if (G == 2) {
+    // class k goes to parity k ^ (2 py + px): swap the column classes where
+    // the centre's column is odd, the row classes where its row is
+    const bool px = ax.par != 0, py = ay.par != 0;
+    float v[4], u[4];
+    for (int k = 0; k < 4; ++k) {
+      v[k] = px ? sv[k ^ 1] : sv[k];
+      u[k] = px ? sa[k ^ 1] : sa[k];
+    }
+    for (int k = 0; k < 4; ++k) {
+      const float vk = py ? v[k ^ 2] : v[k];
+      const float uk = py ? u[k ^ 2] : u[k];
+      nv[k] = __fmaf_rn(wr, vk, nv[k]);
+      na[k] = __fmaf_rn(wr, uk, na[k]);
+    }
+  } else {
+    nv[0] = __fmaf_rn(wr, sv[0], nv[0]);
+    na[0] = __fmaf_rn(wr, sa[0], na[0]);
+  }
+}
+
+// The channel sums of K6's parity sums (merge_fused_pixel): channel ch adds
+// the parities the CFA (packed as for merge_cfa_masks) gives it, in parity
+// order; grey mode has one sum and one channel.
+template <int G>
+__device__ __forceinline__ void merge_fused_channels(const float* nv,
+                                                     const float* na, int cfa,
+                                                     float* n, float* d) {
+  if (G == 2) {
+    for (int ch = 0; ch < 3; ++ch) {
+      n[ch] = 0.0f;
+      d[ch] = 0.0f;
+      for (int p = 0; p < 4; ++p) {
+        if (((cfa >> (2 * p)) & 3) == ch) {
+          n[ch] += nv[p];
+          d[ch] += na[p];
+        }
+      }
+    }
+  } else {
+    n[0] = nv[0];
+    d[0] = na[0];
   }
 }
 
@@ -1079,6 +1425,119 @@ __device__ __forceinline__ void merge_ref_pixel(
         accs[0] += wgt;
       }
     }
+  }
+}
+
+// merge_ref_pixel at the compile-time tap radius RR (the denoiser's
+// rad_max, or 1 without it), with the exponent as merge_fused_pixel takes
+// it (pre-scaled, ex2.approx, out-of-frame and out-of-radius taps at -inf)
+// and the taps summed per parity class: the same contribution to rounding.
+// rr must equal RR.
+template <int G, int ISO, int RR>
+__device__ __forceinline__ void merge_ref_pixel_fast(
+    const float* buf, int rows, int Ts, int s, int r, int c, int H, int W,
+    int cfa, const float* __restrict__ acc_rob, int rad_max, float max_mult,
+    float max_count, float* vals, float* accs, bool& overwrite) {
+  constexpr int NCH = merge_planes(G);
+  constexpr int NT = 2 * RR + 1;
+  constexpr int NP = merge_fused_pairs(G);
+  const int B = Ts * s;
+  const MergeRefWindows w = merge_ref_windows<G, ISO>(Ts, s, rows, RR);
+  const MergeRefAxis* rowt = reinterpret_cast<const MergeRefAxis*>(buf);
+  const MergeRefAxis* colt = rowt + rows;
+  const float* raw = reinterpret_cast<const float*>(colt + B);
+  const float* cov = raw + w.RWr * w.RW;
+  const MergeRefAxis ay = rowt[r];
+  const MergeRefAxis ax = colt[c];
+
+  float ixx = 1.0f, ixy = 0.0f, iyy = 1.0f;
+  if (!ISO) {
+    float cc[3];
+    for (int k = 0; k < 3; ++k) {
+      const float* ck = cov + k * w.CWr * w.CW;
+      const float c00 = ck[ay.k0 * w.CW + ax.k0];
+      const float c01 = ck[ay.k0 * w.CW + ax.k1];
+      const float c10 = ck[ay.k1 * w.CW + ax.k0];
+      const float c11 = ck[ay.k1 * w.CW + ax.k1];
+      const float top = c00 + ax.frac * (c01 - c00);
+      const float bot = c10 + ax.frac * (c11 - c10);
+      cc[k] = top + ay.frac * (bot - top);
+    }
+    const float det = cc[0] * cc[2] - cc[1] * cc[1];
+    if (fabsf(det) > 1e-10f) {
+      const float inv_det = __frcp_rn(det);
+      ixx = inv_det * cc[2];
+      ixy = -inv_det * cc[1];
+      iyy = inv_det * cc[0];
+    }
+  }
+  const bool denoise = acc_rob != nullptr;
+  float scale = -0.72134752044448170f;  // -log2(e) / 2, over the power
+  int rad = RR;
+  overwrite = false;
+  if (denoise) {
+    const float lar = acc_rob[(size_t)ay.acc * W + ax.acc];
+    const bool few = lar <= max_count;
+    scale = few ? scale / max_mult : scale;
+    rad = few ? rad_max : 1;
+    overwrite = lar < max_count;
+  }
+  const float minus_inf = __int_as_float(0xff800000);
+  float a[NT], t[NT], b[NT], dy[NT];
+  for (int d = -RR; d <= RR; ++d) {
+    const int j = ax.center + d, i = ay.center + d;
+    const bool in_j = j >= 0 && j < W && abs(d) <= rad;
+    const bool in_i = i >= 0 && i < H && abs(d) <= rad;
+    const float dx = (float)j - ax.pos;
+    dy[d + RR] = (float)i - ay.pos;
+    if (ISO) {
+      a[d + RR] = in_j ? dx * dx * (2.0f * scale) : minus_inf;
+      b[d + RR] = in_i ? dy[d + RR] * dy[d + RR] * (2.0f * scale) : minus_inf;
+    } else {
+      a[d + RR] = in_j ? ixx * scale * dx * dx : minus_inf;
+      t[d + RR] = 2.0f * ixy * scale * dx;
+      b[d + RR] = in_i ? iyy * scale * dy[d + RR] * dy[d + RR] : minus_inf;
+    }
+  }
+  float sv[NP], sa[NP];
+  for (int k = 0; k < NP; ++k) {
+    sv[k] = 0.0f;
+    sa[k] = 0.0f;
+  }
+  for (int di = -RR; di <= RR; ++di) {
+    const float* rrow = raw + (ay.q + di) * w.RW + ax.q;
+    for (int dj = -RR; dj <= RR; ++dj) {
+      float z;
+      if (ISO) {
+        z = a[dj + RR] + b[di + RR];
+      } else {
+        z = fminf(__fmaf_rn(t[dj + RR], dy[di + RR], a[dj + RR]) + b[di + RR],
+                  0.0f);
+      }
+      const float e = ex2_approx(z);
+      const int k = G == 2 ? 2 * (di & 1) + (dj & 1) : 0;
+      sv[k] = __fmaf_rn(e, rrow[dj], sv[k]);
+      sa[k] = sa[k] + e;
+    }
+  }
+  for (int k = 0; k < NCH; ++k) {
+    vals[k] = 0.0f;
+    accs[k] = 0.0f;
+  }
+  if (G == 2) {
+    const int m = 2 * ay.par + ax.par;  // class k holds the taps of parity k ^ m
+    for (int k = 0; k < 4; ++k) {
+      const int ch = (cfa >> (2 * (k ^ m))) & 3;
+      for (int q = 0; q < NCH; ++q) {
+        if (ch == q) {
+          vals[q] += sv[k];
+          accs[q] += sa[k];
+        }
+      }
+    }
+  } else {
+    vals[0] = sv[0];
+    accs[0] = sa[0];
   }
 }
 

@@ -77,8 +77,10 @@ def dryrun_multichip(n_devices, device="cuda", backend="gloo"):
     ref, comps, _, _ = make_synthetic_burst(h, w, n_frames=n_devices + 2, alpha=ALPHA,
                                             beta=BETA, seed=1)
     ref, comps = torch.as_tensor(ref), torch.as_tensor(comps)
-    want, _ = make_pipeline(small_config(h=h, w=w), DEFAULT_CFA, [1.0, 1.0, 1.0],
-                            device)(ref, comps, *affine_curves())
+    single = small_config(h=h, w=w)
+    single["tpu"] = {"pipeline": "scan"}    # the sharded pipeline's refill
+    want, _ = make_pipeline(single, DEFAULT_CFA, [1.0, 1.0, 1.0], device)(
+        ref, comps, *affine_curves())
     shapes = [(n_devices, 1)]
     if n_devices % 2 == 0 and n_devices > 1:
         shapes.insert(0, (n_devices // 2, 2))

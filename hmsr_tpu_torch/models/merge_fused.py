@@ -6,7 +6,9 @@ and return the finished image. The JAX package runs them as XLA; here the
 accumulation is one launch of K6
 (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_fused_accumulate`: every frame,
 then the reference frame, at the padded geometry ``(c, nty*B, ntx*B)``,
-``B = Ts*s``), and the two differ only in how they normalize:
+``B = Ts*s``), then one launch of K7
+(:func:`hmsr_tpu_torch.ops.cuda_merge.refill_groups`) refills, divides and
+crops; the two differ only in the groups K7 normalizes:
 
 - :func:`merge_burst_slab` (``tpu.fused_impl: slab``, the default) refills
   and divides each B-row slab on its own;
@@ -18,8 +20,7 @@ part, as in the JAX package); the image is then cropped to
 ``(c, round(s H), round(s W))``. Integer scales only.
 """
 
-from ..ops.accumfix import normalize_groups
-from ..ops.cuda_merge import merge_fused_accumulate
+from ..ops.cuda_merge import merge_fused_accumulate, refill_groups
 from ..utils.types import DEFAULT_FLOAT
 from .merge_tiled import check_merge_config, merge_variant
 
@@ -40,8 +41,7 @@ def _merge_fused(comp_stack, flows, covs_stack, r_stack, ref_img, ref_covs,
         covs_stack.contiguous(), r_stack.contiguous(), ref_img.contiguous(),
         ref_covs.contiguous(), cfa_pattern, Ts, s, grey, iso, **kw)
     H, W = ref_img.shape
-    image = normalize_groups(num, den, Ts * s, tiles)
-    return image[:, :H * s, :W * s]
+    return refill_groups(num, den, Ts * s, H * s, W * s, tiles)
 
 
 def merge_burst_slab(comp_stack, flows, covs_stack, r_stack, ref_img, ref_covs,

@@ -1,16 +1,19 @@
 """Merge accumulation (twin of :mod:`hmsr_tpu.models.merge_tiled`).
 
 - :func:`merge_tiled` accumulates a non-reference frame (Alg. 4) through K5
-  (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_accumulate`), in place, at an
-  integer scale (a fractional one takes :func:`.merge.merge`).
+  (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_accumulate`), in place, where
+  the pipeline's merge is tiled (``tpu.merge_impl``, see
+  :func:`hmsr_tpu_torch.models.pipeline._use_tiled`; integer scales only);
+  otherwise the pipeline takes :func:`.merge.merge`.
 - :func:`merge_ref_tiled` accumulates the reference frame (Alg. 11) at any
   scale with torch ops (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_ref_plain`,
   which is also K6's reference step): the JAX package runs it as XLA, not
   Pallas. It is written in the direct gather form of
   :func:`hmsr_tpu.models.merge.merge_ref` and evaluated in bands of HR rows
-  so that no full-size tap temporaries exist (``merge_ref_banded`` of the
-  JAX pipeline at a fractional scale, ``merge_ref_tiled`` at an integer
-  one: the same function).
+  so that no full-size tap temporaries exist. It is the counterpart of both
+  reference merges of the JAX pipeline: ``merge_ref_tiled`` where its merge
+  is tiled and ``merge_ref_banded`` where it is not
+  (``hmsr_tpu/models/pipeline.py:79-103``, the same sums in bands).
 
 Both take every variant of the JAX package's merge: Bayer or grey mode
 (``mode``), the steerable or the isotropic kernel (``merging.kernel``), and
@@ -24,8 +27,8 @@ from ..utils.types import DEFAULT_FLOAT
 
 
 def integer_scale(config):
-    """Whether the configuration's scale is an integer (K5 and K5' serve
-    it; a fractional scale takes the gather merge)."""
+    """Whether the configuration's scale is an integer (the tiled merges
+    need one)."""
     return float(config.scale) == int(config.scale)
 
 
@@ -62,7 +65,9 @@ def merge_tiled(comp_img, flow, covs, r, num, den, cfa_pattern, config,
 def merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config, acc_rob=None,
                     band_rows=512, row_offset=0):
     """Accumulate the reference frame into (num, den) (c, round(s H),
-    round(s W)) in place, at any scale s; returns the pair.
+    round(s W)) in place, at any scale s; returns the pair. The JAX
+    pipeline's ``merge_ref_tiled`` (tiled merges) and ``merge_ref_banded``
+    (the gather merge) alike: both sum the same taps, the latter in bands.
 
     The HR pixel R sits at ``R/s`` (no half-pixel shift); its taps are
     centred on ``round(R/s)``, and the covariance inverse is guarded. Bayer

@@ -8,26 +8,35 @@ refill + divide. In grey mode (``mode: grey``) a frame is its own grey
 image and the accumulators have one plane. The accumulators are ``(c,
 round(s H), round(s W))`` at any scale s.
 
-- ``scan`` (``tpu.pipeline`` "auto" or "scan"): a Python loop over the
+- ``auto`` (the default): ``fused`` where the merge is tiled
+  (:func:`_use_tiled`), ``scan`` otherwise. The JAX package picks ``scan``
+  on a TPU and ``fused`` on any other device (``_on_tpu()``); the port
+  never runs on a TPU, so its ``auto`` is the JAX package's off the TPU.
+- ``scan``: a Python loop over the
   frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
-  covariances -> merge into ``(num, den)`` in place: K5 at an integer
-  scale, the gather merge (:func:`.merge.merge`, plain torch) at a
-  fractional one; then the reference merge and the border-strip refill.
-  "auto" is the scan form, the JAX package's choice on its TPU.
+  covariances -> merge into ``(num, den)`` in place: K5 where the merge is
+  tiled, the gather merge (:func:`.merge.merge`, plain torch) otherwise;
+  then the reference merge and the border-strip refill.
 - ``chunked``: the same analysis for every frame first, its flows,
   robustness maps and covariances stacked; then one burst-fused merge (K5')
   per chunk of ``tpu.merge_chunk`` frames (default 5; the last chunk is
-  shorter). The result is bit-identical to ``scan``. Integer scales only:
-  a fractional one raises ``ValueError``, as in the JAX package.
+  shorter). The result is bit-identical to ``scan``. Tiled merges only:
+  otherwise it raises ``ValueError``, as in the JAX package.
 - ``fused``: the same stacked analysis, then the whole burst and the
-  reference frame in one launch of K6 and a refill per group of the
-  accumulators, interior included (:mod:`.merge_fused`: per B-row slab with
-  ``tpu.fused_impl: slab``, the default; per (B, B) tile with any other
-  value). At a fractional scale it runs the scan form, as the JAX package
-  does (its fused merges need the tiled geometry).
+  reference frame in one launch of K6 and the refill per group of the
+  accumulators, interior included, in one launch of K7 (:mod:`.merge_fused`:
+  per B-row slab with ``tpu.fused_impl: slab``, the default; per (B, B)
+  tile with any other value). Where the merge is not tiled it runs the scan
+  form, as the JAX package does (its fused merges need the tiled geometry).
 - ``vmapped``: the stacked analysis, ``acc_r`` the sum of the stacked
   robustness maps, then the scan form's merges frame by frame, reference
   merge and border-strip refill: the scan image.
+
+``tpu.merge_impl`` (``auto``, ``tiled``, ``gather``; ``pallas`` is the JAX
+package's Pallas twin of ``tiled``) picks the merge as the JAX package does
+(:func:`_use_tiled`): the gather merge with ``gather`` and, under ``auto``,
+at a fractional scale; any other value at a fractional scale raises
+``ValueError``; everything else is tiled (K5, K5', K6 by form).
 
 With ``grey_method: decimating`` (Bayer mode) the alignment runs on the
 half-resolution grey image and each flow is moved to the raw tile grid
@@ -59,33 +68,52 @@ from .robustness import compute_robustness, init_robustness
 PIPELINES = ("auto", "scan", "chunked", "fused", "vmapped")
 
 
+def _use_tiled(config):
+    """Whether the merge is tiled (the JAX package's ``_use_tiled``):
+    ``tpu.merge_impl`` "gather" is not, nor "auto" (the default) at a
+    fractional scale; any other value at a fractional scale raises
+    ``ValueError``; everything else is."""
+    impl = config.get("tpu", {}).get("merge_impl", "auto")
+    if impl == "gather" or (impl == "auto" and not integer_scale(config)):
+        return False
+    if not integer_scale(config):
+        raise ValueError("tiled merge requires an integer scale")
+    return True
+
+
 def check_supported(config):
     """Raise ``NotImplementedError`` for an unknown pipeline form, and
-    ``ValueError`` for the chunked form at a fractional scale."""
+    ``ValueError`` for a tiled ``tpu.merge_impl`` at a fractional scale and
+    for the chunked form where the merge is not tiled."""
     mode = config.get("tpu", {}).get("pipeline", "auto")
     if mode not in PIPELINES:
         raise NotImplementedError(f"tpu.pipeline={mode!r}: the forms are "
                                   f"{', '.join(PIPELINES)}")
-    if mode == "chunked" and not integer_scale(config):
+    if not _use_tiled(config) and mode == "chunked":
         raise ValueError("tpu.pipeline=chunked requires an integer scale "
                          "(tiled merge geometry)")
 
 
 def pipeline_form(config):
     """The form :func:`run_pipeline` runs: ``tpu.pipeline``, with "auto"
-    the scan form and "fused" at a fractional scale too (the JAX package's
-    ``fused = pipe_mode == "fused" and _use_tiled(config)``)."""
+    the fused form where the merge is tiled and the scan form otherwise (the
+    JAX package's choice off the TPU), and "fused" the scan form where the
+    merge is not tiled (``fused = pipe_mode == "fused" and
+    _use_tiled(config)``)."""
     mode = config.get("tpu", {}).get("pipeline", "auto")
-    if mode == "auto" or (mode == "fused" and not integer_scale(config)):
+    if mode == "auto":
+        mode = "fused"
+    if mode == "fused" and not _use_tiled(config):
         return "scan"
     return mode
 
 
 def select_merge(config):
     """The merge of a compared frame: K5 (:func:`.merge_tiled.merge_tiled`)
-    at an integer scale, the gather merge (:func:`.merge.merge`) at a
-    fractional one."""
-    return merge_tiled if integer_scale(config) else merge
+    where the merge is tiled (:func:`_use_tiled`; the JAX package's
+    ``merge_tiled`` and ``merge_pallas``), the gather merge
+    (:func:`.merge.merge`) otherwise."""
+    return merge_tiled if _use_tiled(config) else merge
 
 
 def accum_shape(config, raw_shape):

@@ -11,7 +11,10 @@ division. With ``-fmad=false``: every multiply and add rounds once, as the
 plain versions' elementwise torch ops do; a contracted FMA changes the merge
 weights' quadratic form ``d^T Omega^-1 d`` and the covariance determinant,
 both differences of large terms for anisotropic kernels, by more than the
-1e-5 the kernels are held to.
+1e-5 the kernels are held to. K6 (``csrc/merge_fused.cu``) trades exactness
+for instructions where it can: explicit ``__fmaf_rn`` contractions and
+``ex2.approx`` in its exponent, with the flags left global (it keeps the
+covariance determinant's separate roundings).
 
 With ``-Xptxas -v``: ptxas reports each kernel's registers, shared memory
 and spills; the build keeps that report beside the library
@@ -60,6 +63,7 @@ SIGNATURES = {
     "hmsr_merge_layout": [_I, _I, _I, _I, _I, _P],
     "hmsr_merge_fused": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "hmsr_refill": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "hmsr_cta_probe": [_I, _P, _I, _P, _I, _P],
     "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
 }

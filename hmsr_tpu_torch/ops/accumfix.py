@@ -10,6 +10,8 @@ vmapped pipelines). The fused pipeline's merges normalize per group
 instead (:func:`normalize_groups`): each B-row slab
 (``models/merge_slab.py``) or each (B, B) tile (``models/merge_fused.py``)
 gets the full refill, interior included, with zero context past its edges.
+On the card that is K7 (:func:`hmsr_tpu_torch.ops.cuda_merge.refill_groups`),
+which this function's operations define bit for bit.
 """
 
 import torch

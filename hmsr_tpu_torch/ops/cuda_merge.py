@@ -1,14 +1,16 @@
 """K5 (merge accumulation of one frame), K5' (the same over a chunk of
-frames, accumulators read and written once) and K6 (the whole burst and the
-reference frame, accumulators written once): CUDA kernel wrappers and their
+frames, accumulators read and written once), K6 (the whole burst and the
+reference frame, accumulators written once) and K7 (the fused form's refill
+and divide per group of K6's accumulators): CUDA kernel wrappers and their
 plain PyTorch versions.
 
 Counterpart of :mod:`hmsr_tpu.ops.pallas_merge`: ``merge_pallas`` (per
 frame) and ``merge_burst_pallas`` (frames grid); and of the JAX package's
 XLA-only fused merges ``models/merge_slab.py:merge_burst_slab`` and
-``models/merge_fused.py:merge_burst_tiled`` up to their normalization. The
-kernels are ``csrc/merge.cu`` and ``csrc/merge_burst.cu`` (both replace
-``pallas_merge.py:_merge_group_kernel``) and ``csrc/merge_fused.cu``; their
+``models/merge_fused.py:merge_burst_tiled`` up to their normalization (K6)
+and of that normalization (K7). The kernels are ``csrc/merge.cu`` and
+``csrc/merge_burst.cu`` (both replace ``pallas_merge.py:_merge_group_kernel``),
+``csrc/merge_fused.cu`` and ``csrc/refill.cu``; their
 headers say what bounds them on the H100 and how the design answers it: one
 block per HR tile (or band of one), tile windows staged in shared memory;
 ``csrc/common.cuh`` decides the launch layout (:func:`merge_layout` reads it
@@ -24,8 +26,9 @@ pipeline's space axis runs): ``(c, rows, W*s)`` holding global HR rows from
 fused merges' padded geometry (:func:`fused_accum_shape`). The reference
 frame's merge, plain, is :func:`merge_ref_plain`. A wrapper launches its
 kernel for CUDA tensors and runs the plain version only for CPU tensors;
-``merge_accumulate.launches``, ``merge_burst_accumulate.launches`` and
-``merge_fused_accumulate.launches`` count kernel launches,
+``merge_accumulate.launches``, ``merge_burst_accumulate.launches``,
+``merge_fused_accumulate.launches`` and ``refill_groups.launches`` count
+kernel launches,
 ``merge_accumulate.band_launches`` those of K5 into a band.
 """
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .accumfix import STARVED_DEN, normalize_groups
 from ..utils.types import DEFAULT_FLOAT, EPSILON_DIV
 
 
@@ -550,3 +554,44 @@ def merge_fused_accumulate(comp_stack, flows, covs_stack, r_stack, ref_img, ref_
 
 
 merge_fused_accumulate.launches = 0
+
+
+def refill_plain(num, den, B, out_h, out_w, tiles=False):
+    """Plain version of K7: :func:`~.accumfix.normalize_groups` of the
+    padded ``(c, h, w)`` accumulators, cropped to ``(c, out_h, out_w)``."""
+    return normalize_groups(num, den, B, tiles)[:, :out_h, :out_w]
+
+
+def refill_groups(num, den, B, out_h, out_w, tiles=False):
+    """K7: the fused form's refill and divide. ``num``/``den``: K6's padded
+    ``(c, h, w)`` accumulators, h and w whole multiples of ``B = Ts*s``,
+    contiguous float32 on one device; each B-row slab (or each (B, B) tile
+    with ``tiles``) is refilled and divided on its own, as
+    :func:`~.accumfix.normalize_groups` does, and the image is the
+    ``(c, out_h, out_w)`` crop, a new tensor."""
+    B, out_h, out_w = int(B), int(out_h), int(out_w)
+    dev = num.device
+    _build.check_f32("num", num, 3, dev)
+    _build.check_f32("den", den, 3, dev)
+    c, h, w = num.shape
+    _build.check_arg(tuple(den.shape) == (c, h, w), f"num {tuple(num.shape)}, den "
+                     f"{tuple(den.shape)}")
+    _build.check_arg(B >= 1 and h >= B and w >= B and h % B == 0 and w % B == 0,
+                     f"accumulators {(h, w)} are no whole groups of B = {B}")
+    _build.check_arg(1 <= out_h <= h and 1 <= out_w <= w,
+                     f"crop {(out_h, out_w)} of {(h, w)}")
+    if dev.type == "cpu":
+        return refill_plain(num, den, B, out_h, out_w, tiles)
+    _build.require_cuda(dev)
+    _build.check_arg(num.is_contiguous() and den.is_contiguous(),
+                     "refill inputs must be contiguous")
+    out = torch.empty((c, out_h, out_w), dtype=DEFAULT_FLOAT, device=dev)
+    code = _build.library().hmsr_refill(
+        _build.ptr(num), _build.ptr(den), _build.ptr(out), c, h, w, B, int(bool(tiles)),
+        out_h, out_w, STARVED_DEN, EPSILON_DIV, _build.stream_of(num))
+    _build.check(code, "hmsr_refill")
+    refill_groups.launches += 1
+    return out
+
+
+refill_groups.launches = 0

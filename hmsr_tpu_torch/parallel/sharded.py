@@ -11,11 +11,13 @@ takes
 - the ``f``-th contiguous block of the (padded) frames: it aligns, weighs
   and merges them into partial accumulators, which are summed over the
   frames group (``all_reduce``; one per burst);
-- HR band ``sp`` of the accumulators: at an integer scale ``nb`` whole tile
-  rows of ``B = Ts*s`` HR rows from global row ``sp * nb * B``, ``nb =
-  ceil(ceil(out_h / B) / n_space)`` (the Pallas path's band geometry; K5's
-  banded branch merges into it); at a fractional scale ``out_h / n_space``
-  rows (the gather merge; ``out_h`` must divide).
+- HR band ``sp`` of the accumulators. The merge is routed as the JAX
+  package routes it (``hmsr_tpu/parallel/sharded.py:82-88``): K5's banded
+  branch at an integer scale unless ``tpu.merge_impl`` is "gather", into
+  ``nb`` whole tile rows of ``B = Ts*s`` HR rows from global row ``sp * nb
+  * B``, ``nb = ceil(ceil(out_h / B) / n_space)`` (the Pallas path's band
+  geometry); the gather merge otherwise, into ``out_h / n_space`` rows
+  (``out_h`` must divide).
 
 The reference init runs on every rank. After the reference merge into its
 band, the bands are assembled over the space group, one ``broadcast`` per
@@ -38,9 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.merge_tiled import integer_scale
+from ..models.merge import merge
+from ..models.merge_tiled import integer_scale, merge_tiled
 from ..models.pipeline import (_as_tensor, accum_shape, frame_step, init_reference,
-                               merge_reference, normalize_image, select_merge)
+                               merge_reference, normalize_image)
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 
 
@@ -113,17 +116,25 @@ def pad_frames(comp_imgs, n_shards):
     return comp_imgs, weights
 
 
+def banded_tiled(config):
+    """Whether the sharded pipeline merges through K5's banded branch: at
+    an integer scale unless ``tpu.merge_impl`` is "gather" (the JAX
+    package's ``merge_tiled if (integer_scale and impl != "gather")``)."""
+    impl = config.get("tpu", {}).get("merge_impl", "auto")
+    return integer_scale(config) and impl != "gather"
+
+
 def band_geometry(config, raw_shape, n_space):
     """``rows``: the HR rows of each of the ``n_space`` bands (band ``sp``
-    starts at global row ``sp * rows``): whole tile rows at an integer scale,
-    ``out_h / n_space`` at a fractional one (``ValueError`` unless it
-    divides, the JAX package's rule)."""
+    starts at global row ``sp * rows``): whole tile rows for K5
+    (:func:`banded_tiled`), ``out_h / n_space`` for the gather merge
+    (``ValueError`` unless it divides, the JAX package's rule)."""
     _, out_h, _ = accum_shape(config, raw_shape)
-    if integer_scale(config):
+    if banded_tiled(config):
         B = int(config.block_matching.tuning.tile_size) * int(config.scale)
         return -(-(-(-out_h // B)) // n_space) * B
     if out_h % n_space:
-        raise ValueError(f"a fractional scale shards {out_h} HR rows over {n_space} "
+        raise ValueError(f"the gather merge shards {out_h} HR rows over {n_space} "
                          f"bands only if they divide")
     return out_h // n_space
 
@@ -163,7 +174,7 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, device=None)
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     accumulate_r = denoise or bool(config.robustness.save_mask)
     debug_mode = bool(config.debug)
-    merge_frame = select_merge(config)
+    merge_frame = merge_tiled if banded_tiled(config) else merge
 
     def fn(ref_img, comps, weights, std_curve, diff_curve):
         ref_img = _as_tensor(ref_img, device)

@@ -8,8 +8,8 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
-``--pipeline``: scan, chunked with chunks of 5, fused (the slab refill) or
-vmapped; ``--mode grey``:
+``--pipeline``: scan, chunked with chunks of 5, fused (K6 and K7's refill
+per slab) or vmapped; ``--mode grey``:
 ``bench.py``'s grey cell, the frames taken as grey images; ``--scale``: the
 output scale, with ``bench.py``'s mutations of its x3 and x1 cells at 3
 and 1, :data:`SCALE_CELLS`) once to warm up,
@@ -72,7 +72,8 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.
                 "warp_kernel": cuda_warp.upscale_warp,
                 "merge_kernel": cuda_merge.merge_accumulate,
                 "merge_burst_kernel": cuda_merge.merge_burst_accumulate,
-                "merge_fused_kernel": cuda_merge.merge_fused_accumulate}
+                "merge_fused_kernel": cuda_merge.merge_fused_accumulate,
+                "refill_kernel": cuda_merge.refill_groups}
 #: stage -> (hand-written kernel, its launches per burst from that stage);
 #: None stands for "every launch of the burst".
 LAUNCHED_BY = {
@@ -81,7 +82,7 @@ LAUNCHED_BY = {
     "init_robustness": (("warp_kernel", 2),),
     "merge_tiled": (("merge_kernel", None),),
     "_merge_burst_chunked": (("merge_burst_kernel", None),),
-    "merge_burst_fused": (("merge_fused_kernel", None),),
+    "merge_burst_fused": (("merge_fused_kernel", None), ("refill_kernel", None)),
 }
 
 

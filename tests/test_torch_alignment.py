@@ -202,6 +202,6 @@ def test_cpu_wrappers_launch_no_kernel():
     cuda_ica.ica_steps(t(ref), st.gradx, st.grady, st.terms, t(mov), flow, 16, 3)
     for bm in (False, True):
         cuda_ica.ica_fused(t(ref), st.gradx, st.grady, st.terms, t(mov), flow, 16, 3, bm)
-    assert kernel_counts() == before == (0,) * 7
+    assert kernel_counts() == before == (0,) * 8
     with pytest.raises(ValueError):
         cuda_ica.block_match(t(_tiles(ref, 16)), t(mov), flow.double(), 16, 4, "L2")

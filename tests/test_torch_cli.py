@@ -199,8 +199,8 @@ def test_cli_png_against_jax(bundle, tmp_path):
     env = dict(os.environ, HMSR_FORCE_CPU="1", OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", RUN_CLI, "--impath", str(path),
                           "--outpath", str(out), "--config", str(d / "c.yaml"),
-                          *OVERRIDES], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=300)
+                          *OVERRIDES, "tpu.pipeline=scan"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NOJAX-OK" in res.stdout and "Upscaling factor" in res.stdout
     got = _read_png(out, "PIL")
@@ -273,20 +273,22 @@ def test_cli_dng_output(bundle, tmp_path, monkeypatch):
 
 def test_graft_entry_against_jax():
     """``graft_entry.entry(device="cpu")`` against the JAX package's entry
-    configuration (``__graft_entry__._small_config``) on its scan pipeline,
-    with the e2e bounds (flow max|d| < 1e-2; image mean|d| < 1e-4 and max|d|
-    < 1e-3 on the interior)."""
+    configuration (``__graft_entry__._small_config``) on its default
+    pipeline form (``auto``: the fused form off the TPU, the port's default
+    too), with the e2e bounds (flow max|d| < 1e-2; image mean|d| < 1e-4 and
+    max|d| < 1e-3 on the interior)."""
     from __graft_entry__ import _small_config
     from hmsr_tpu.models.pipeline import make_pipeline as j_make_pipeline
+    from hmsr_tpu_torch.models.pipeline import pipeline_form
     fn, args = graft_entry.entry(device="cpu")
     ref, comps, std, diff = args
     assert tuple(ref.shape) == (128, 128) and tuple(comps.shape) == (3, 128, 128)
     np.testing.assert_array_equal(std.numpy(), curves()[0])
     np.testing.assert_array_equal(diff.numpy(), curves()[1])
     jc = _small_config()
-    jc.tpu.pipeline = "scan"
     jc.debug = True
     pc = graft_entry.small_config()
+    assert jc.tpu.pipeline == "auto" and pipeline_form(pc) == "fused"
     assert {k: v for k, v in jc.items() if k != "tpu"} == {**pc, "debug": True}
     img_j, dbg_j = j_make_pipeline(jc, DEFAULT_CFA, [1.0, 1.0, 1.0])(
         *(jnp.asarray(x.numpy()) for x in args))
@@ -298,7 +300,7 @@ def test_graft_entry_against_jax():
     pc.debug = True
     _, dbg_t = make_pipeline(pc, DEFAULT_CFA, [1.0, 1.0, 1.0], "cpu")(*args)
     assert np.abs(n(dbg_t["flow"]) - np.asarray(dbg_j["flow"])).max() < 1e-2
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_new_modules_import_no_reference():

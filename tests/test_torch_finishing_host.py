@@ -121,6 +121,7 @@ def test_process_routes_against_jax(burst, route, monkeypatch):
     jc = _tune(default_config(), impl, tonemap)
     jc.tpu.update(pipeline="scan", merge_impl="tiled")
     pc = _tune(configs.default_config(), impl, tonemap)
+    pc.tpu.pipeline = "scan"
     assert P.use_device_finishing(pc) == on_device
     img_j, _ = j_process_arrays(ref, comps, jc, iso=100)
     img_t, _ = P.process_arrays(ref, comps, pc, iso=100, device="cpu")

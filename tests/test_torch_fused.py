@@ -14,6 +14,10 @@
   leaves interior HR pixels without any compared frame; the fused image
   differs from the scan image there (the per-group refill), the vmapped one
   equals it, and ``fused`` at a fractional scale is the scan form.
+- ``tpu.pipeline: auto`` as the JAX package resolves it off the TPU: the
+  fused form where the merge is tiled, the scan form otherwise; the port's
+  default configuration through ``process_arrays`` against the JAX
+  package's (whose ``auto`` runs the fused form on the CPU).
 """
 
 import numpy as np
@@ -30,10 +34,13 @@ from hmsr_tpu.io.synthetic import DEFAULT_CFA, make_occlusion_burst  # noqa: E40
 from hmsr_tpu.models import merge_fused as j_fused  # noqa: E402
 from hmsr_tpu.models import merge_slab as j_slab  # noqa: E402
 from hmsr_tpu.models.pipeline import make_pipeline as j_make_pipeline  # noqa: E402
+from hmsr_tpu.models.process import process_arrays as j_process_arrays  # noqa: E402
+from hmsr_tpu_torch import configs  # noqa: E402
 from hmsr_tpu_torch.models import merge_fused, merge_tiled  # noqa: E402
-from hmsr_tpu_torch.models.pipeline import make_pipeline  # noqa: E402
+from hmsr_tpu_torch.models import process as P  # noqa: E402
+from hmsr_tpu_torch.models.pipeline import make_pipeline, pipeline_form  # noqa: E402
 from hmsr_tpu_torch.ops import cuda_merge  # noqa: E402
-from hmsr_tpu_torch.ops.accumfix import STARVED_DEN  # noqa: E402
+from hmsr_tpu_torch.ops.accumfix import STARVED_DEN, normalize_groups  # noqa: E402
 
 CFA = np.array([[0, 1], [1, 2]])
 #: (scale, variant, denoiser, frames, h, w) at Ts=16: the shapes of
@@ -111,7 +118,7 @@ def test_merge_burst_against_jax(case, impl):
         variant.endswith("iso"), **_denoiser_args(config, acc_rob))
     wellfed = n(den)[:, :got.shape[1], :got.shape[2]] > STARVED_DEN
     assert d[wellfed].max() <= 1e-4
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def _denoiser_args(config, acc_rob):
@@ -151,7 +158,7 @@ def test_merge_fused_plain_is_frames_then_reference(case):
     assert torch.equal(wrapped[0], num) and torch.equal(wrapped[1], den)
     if shape[1] > h * scale:
         assert float(frames_den[:, h * scale:].abs().max()) > 0
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 @pytest.mark.parametrize("bad", ["rad_max", "comp_shape", "ref_covs_grid", "scale"])
@@ -173,6 +180,28 @@ def test_merge_fused_refuses(bad):
     with pytest.raises(ValueError):
         cuda_merge.merge_fused_accumulate(comp, flows, covs, rmaps, ref, ref_covs, CFA,
                                           16, scale, **kw)
+
+
+@pytest.mark.parametrize("tiles", [False, True])
+def test_refill_groups_plain_and_checks(tiles):
+    """K7's wrapper on CPU tensors is ``normalize_groups`` and the crop, bit
+    for bit (a new tensor of the crop's shape); it refuses accumulators that
+    are no whole groups of B, a crop larger than them and mismatched
+    shapes."""
+    rng = np.random.RandomState(7)
+    den = rng.uniform(0, 2, (3, 96, 128)).astype(np.float32)
+    den[rng.rand(*den.shape) < 0.2] = 0.0
+    num = (den * rng.rand(*den.shape)).astype(np.float32)
+    got = cuda_merge.refill_groups(t(num), t(den), 32, 90, 125, tiles)
+    want = normalize_groups(t(num), t(den), 32, tiles)[:, :90, :125]
+    assert tuple(got.shape) == (3, 90, 125) and torch.equal(got, want)
+    for args in ((t(num)[:, :80], t(den)[:, :80], 32, 80, 125),
+                 (t(num), t(den), 32, 97, 125),
+                 (t(num), t(den)[:1], 32, 90, 125),
+                 (t(num).double(), t(den), 32, 90, 125)):
+        with pytest.raises(ValueError):
+            cuda_merge.refill_groups(*args, tiles)
+    assert kernel_counts() == (0,) * 8
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +258,7 @@ def test_pipeline_form_against_jax(occlusion, form):
         assert interior.max() > 1e-3
     else:
         assert torch.equal(img_t, img_s)
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 @pytest.mark.parametrize("impl", ["slab", "tiled"])
@@ -266,3 +295,56 @@ def test_vmapped_denoiser_against_jax():
     d = np.abs(n(img_t) - np.asarray(img_j))[8:-8, 8:-8]
     assert d.mean() < 1e-4 and d.max() < 1e-3
     assert "accumulated_robustness" in dbg
+
+
+# ---------------------------------------------------------------------------
+# tpu.pipeline: auto
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scale,impl,form", [
+    (2, None, "fused"), (3, None, "fused"), (1, None, "fused"), (1.5, None, "scan"),
+    (2, "gather", "scan"), (2, "tiled", "fused"), (2.5, "gather", "scan")])
+def test_auto_form(scale, impl, form):
+    """``auto`` (the default) is the JAX package's choice off the TPU,
+    ``fused`` where the merge is tiled (``_use_tiled``: an integer scale
+    and no ``gather``) and ``scan`` otherwise; the default configuration
+    sets neither key."""
+    c = configs.default_config()
+    assert "tpu" not in c
+    c.scale = scale
+    if impl:
+        c["tpu"] = {"merge_impl": impl}
+    assert pipeline_form(c) == form
+
+
+def test_default_process_arrays_against_jax_auto():
+    """The port's default configuration through ``process_arrays`` (its
+    ``auto``: the fused form) against the JAX package's default through its
+    ``process_arrays`` on the CPU (also the fused form): the e2e criteria on
+    the interior and the accumulated robustness within the per-frame
+    tolerance times the frames."""
+    from test_torch_process import _tune
+    from hmsr_tpu.configs import default_config as j_default_config
+    ref, comps, _, _ = make_occlusion_burst(SIZE, SIZE, n_frames=N_FRAMES, seed=21,
+                                            max_shift=2.0)
+    jc = _tune(j_default_config(), False)
+    pc = _tune(configs.default_config(), False)
+    assert pipeline_form(pc) == "fused"
+    img_j, dbg_j = j_process_arrays(ref, comps, jc, iso=100)
+    img_t, dbg_t = P.process_arrays(ref, comps, pc, iso=100, device="cpu")
+    assert tuple(img_t.shape) == (2 * SIZE, 2 * SIZE, 3)
+    d = np.abs(n(img_t) - np.asarray(img_j))[8:-8, 8:-8]
+    assert d.mean() < 1e-4 and d.max() < 1e-3, (d.mean(), d.max())
+    d_acc = np.abs(n(dbg_t["accumulated_robustness"])
+                   - np.asarray(dbg_j["accumulated_robustness"]))
+    assert d_acc.max() < 1e-3 * N_FRAMES
+    assert kernel_counts() == (0,) * 8
+
+
+def test_probe_fused_kernel_needs_the_card(monkeypatch):
+    """The K6 variant probe refuses to run without a card (no CPU
+    fallback for a device measurement)."""
+    from hmsr_tpu_torch import probe_fused_kernel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        probe_fused_kernel.main([])

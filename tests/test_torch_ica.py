@@ -64,7 +64,7 @@ def test_ica_steps_plain(ts, n_iter):
     before = kernel_counts()
     assert torch.equal(cuda_ica.ica_steps(*args), got)
     assert torch.equal(ica.refine_ica_tiled(t(ref), st, t(mov), t(flow), ts, n_iter), got)
-    assert kernel_counts() == before == (0,) * 7
+    assert kernel_counts() == before == (0,) * 8
 
 
 @pytest.mark.parametrize("ts", [8, 16])
@@ -108,4 +108,4 @@ def test_gn_wrappers_have_no_fallback(wrapper):
         fn(*meta, 16, 3, *extra)
     with pytest.raises(ValueError):
         fn(t(ref), st.gradx, st.grady, st.terms[:, :2], t(mov), t(flow), 16, 3, *extra)
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8

@@ -75,7 +75,7 @@ def test_merge_gather(frames, variant, scale):
     assert out[0] is got_n and out[1] is got_d          # in place
     assert rel_err(got_n, want[0]) <= 1e-5
     assert rel_err(got_d, want[1]) <= 1e-5
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 @pytest.mark.parametrize("variant,scale", CASES + [
@@ -160,4 +160,4 @@ def test_e2e_fractional_against_jax_scan(cfg):
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
     assert dbg_t.keys() == dbg_j.keys()
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8

@@ -85,7 +85,7 @@ def test_e2e_against_jax_scan(cfg):
         d_acc = np.abs(n(dbg_t["accumulated_robustness"])
                        - np.asarray(dbg_j["accumulated_robustness"]))
         assert d_acc.max() < 1e-3 * len(comps)
-    assert kernel_counts() == (0,) * 7     # CPU tensors: plain versions only
+    assert kernel_counts() == (0,) * 8     # CPU tensors: plain versions only
 
 
 @pytest.mark.parametrize("cfg", ["128-grey", "128-x3-denoiser"])
@@ -102,7 +102,7 @@ def test_chunked_equals_scan_variants(cfg):
     img_c, dbg_c = make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std, diff)
     assert torch.equal(img_c, img_s)
     assert torch.equal(dbg_c["accumulated_robustness"], dbg_s["accumulated_robustness"])
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_chunked_against_jax_scan_and_port_scan():
@@ -128,7 +128,7 @@ def test_chunked_against_jax_scan_and_port_scan():
     assert np.abs(n(dbg_c["flow"]) - np.asarray(dbg_j["flow"])).max() < 1e-2
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_port_imports_no_jax(tmp_path):

@@ -45,7 +45,7 @@ def test_cta_probe_plain(kind, n):
             want = want * np.float32(1.000001) + np.float32(0.000001)
     np.testing.assert_array_equal(got.numpy(), want)
     assert cuda_probes.cta_probe.launches == 0
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_probe_wrapper_checks():

@@ -94,7 +94,7 @@ def test_process_arrays_no_finishing(results):
     assert pc.block_matching.tuning.tile_size == jc.block_matching.tuning.tile_size
     for k in ("k_detail", "k_denoise", "D_th", "D_tr"):
         assert abs(pc.merging.tuning[k] - jc.merging.tuning[k]) < 1e-6
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_process_arrays_with_finishing(results):
@@ -131,7 +131,7 @@ def test_process_arrays_variants_with_finishing(burst, variant):
     assert pc.accumulated_robustness_denoiser.enabled == (variant == "merge_denoiser")
     assert dbg_t.keys() == dbg_j.keys()
     _check_finishing(img_t, img_j)
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def _check_finishing(img_t, img_j):

@@ -107,7 +107,7 @@ def test_banded_merge_plain(frames, variant, scale):
         assert torch.equal(got_n[:, :out_h], want_n)
         assert torch.equal(got_d[:, :out_h], want_d)
         assert not got_n[:, out_h:].any() and not got_d[:, out_h:].any()
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_banded_merge_checks(frames):
@@ -230,6 +230,7 @@ def single(burst):
     """The port's single-device scan pipeline on the CPU."""
     ref, comps = burst
     config = ranks.pipeline_config(PIPE_SIZE, PIPE_SIZE)
+    config["tpu"] = {"pipeline": "scan"}
     return make_pipeline(config, DEFAULT_CFA, ranks.WB, "cpu")(t(ref), t(comps),
                                                                *curves())
 
@@ -342,7 +343,7 @@ def test_process_arrays_mesh(burst, tmp_path, monkeypatch):
     res = spawn_ranks(ranks.process_mesh, 2, args=(t(ref), t(comps), config),
                       tmp_dir=str(tmp_path), threads=1)
     monkeypatch.setattr(P, "run_fast_MC", ranks.affine_mc(0))
-    config["tpu"] = {}
+    config["tpu"] = {"pipeline": "scan"}
     want, debug = P.process_arrays(ref, comps, config, cfa=ranks.CFA, device="cpu")
     for image, dbg in res:
         np.testing.assert_allclose(torch.nan_to_num(image).numpy(),

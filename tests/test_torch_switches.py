@@ -2,7 +2,10 @@
 decimating grey (``grey_method: decimating``, its flow moved to the raw
 tile grid by ``flow_to_raw_grid``) and the bilinear and bicubic flow
 upscaling (``ops/resize.py`` against ``jax.image.resize``); the chunked
-pipeline's refusal of a fractional scale.
+pipeline's refusal of a fractional scale; ``tpu.merge_impl`` (``auto``,
+``tiled``, ``gather``, ``pallas``) routed as the JAX package routes it, in
+the scan, fused and chunked forms at x2 and x1.5 and in the sharded
+pipeline on one rank.
 
 E2E criteria (tools/verify_e2e_parity.py): flow max|d| < 1e-2, image
 mean|d| < 1e-4 and max|d| < 1e-3 on the interior [8:-8, 8:-8].
@@ -15,14 +18,20 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import torch_sharded_ranks as ranks  # noqa: E402
 from torch_port_helpers import (WB, curves, default_config, kernel_counts, n,  # noqa: E402
                                 small_config, t)
 
 from hmsr_tpu.io.synthetic import (DEFAULT_CFA, make_occlusion_burst,  # noqa: E402
                                    make_synthetic_burst)
 from hmsr_tpu.models import pipeline as j_pipeline  # noqa: E402
+from hmsr_tpu.parallel import make_mesh as j_make_mesh  # noqa: E402
+from hmsr_tpu.parallel import make_sharded_pipeline as j_make_sharded  # noqa: E402
+from hmsr_tpu.parallel import pad_frames as j_pad_frames  # noqa: E402
+from hmsr_tpu_torch import configs  # noqa: E402
 from hmsr_tpu_torch.models import pipeline  # noqa: E402
 from hmsr_tpu_torch.ops import resize  # noqa: E402
+from hmsr_tpu_torch.parallel import spawn_ranks  # noqa: E402
 
 
 def _config(cfg):
@@ -58,7 +67,7 @@ def test_e2e_switch_against_jax_scan(cfg):
     assert d_img.mean() < 1e-4
     assert d_img.max() < 1e-3
     assert np.abs(n(dbg_t["robustness"]) - np.asarray(dbg_j["robustness"])).max() < 1e-3
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_chunked_equals_scan_decimating():
@@ -78,7 +87,7 @@ def test_chunked_equals_scan_decimating():
         ref, comps, std, diff)
     assert torch.equal(img_c, img_s)
     assert all(torch.equal(dbg_c[k], dbg_s[k]) for k in dbg_s)
-    assert kernel_counts() == (0,) * 7
+    assert kernel_counts() == (0,) * 8
 
 
 def test_chunked_fractional_scale_raises():
@@ -141,3 +150,151 @@ def test_resize_weights_follow_jax_rule(method, n_in, n_out):
     if method == "cubic" and (n_in, n_out) == (6, 24):
         np.testing.assert_array_equal(resize.weight_matrix_np(6, 12, "cubic")[1:5, 5],
                                       [-0.0703125, 0.8671875, 0.2265625, -0.0234375])
+
+
+# ---------------------------------------------------------------------------
+# tpu.merge_impl, routed as the JAX package routes it
+# ---------------------------------------------------------------------------
+
+ROUTE_SIZE, ROUTE_FRAMES = 64, 3
+MERGE_IMPLS = ("auto", "tiled", "gather", "pallas")
+#: the JAX package's errors where it refuses a route: a tiled merge_impl at
+#: a fractional scale (its _use_tiled), chunked without a tiled merge;
+#: with ``pallas`` at x1.5 its scan form stops earlier, in merge_pallas's
+#: assertion, where the port raises the tiled merge's ValueError
+ROUTE_ERRORS = {(1.5, "tiled"): "tiled merge requires an integer scale",
+                (1.5, "pallas"): "tiled merge requires an integer scale"}
+CHUNKED_ERROR = "tpu.pipeline=chunked requires an integer scale"
+
+
+def route_config(scale, impl, form):
+    """The small two-level configuration at ``scale`` with ``tpu.merge_impl``
+    ``impl`` and ``tpu.pipeline`` ``form``; the JAX side runs its Pallas
+    merges in interpret mode (``pallas``, and the chunked form's burst
+    merge whatever the impl)."""
+    c = small_config(ROUTE_SIZE)
+    c.scale = scale
+    c.tpu.update(pipeline=form, merge_impl=impl, pallas_interpret=True)
+    return c
+
+
+def route_error(scale, impl, form):
+    """The ValueError the route raises in the port, or None."""
+    if (scale, impl) in ROUTE_ERRORS:
+        return ROUTE_ERRORS[(scale, impl)]
+    if form == "chunked" and (impl == "gather" or scale != int(scale)):
+        return CHUNKED_ERROR
+    return None
+
+
+def jax_route_key(scale, impl, form):
+    """The JAX program a route runs (routes with the same key run the same
+    program): the fused form where the merge is tiled, the chunked form
+    (K5''s twin whatever the impl), else the scan form with the per-frame
+    merge its impl picks."""
+    if scale != int(scale) or impl == "gather":
+        return (scale, "scan", "gather")
+    if form in ("fused", "chunked"):
+        return (scale, form, "tiled")
+    return (scale, "scan", "pallas" if impl == "pallas" else "tiled")
+
+
+@pytest.fixture(scope="module")
+def route_burst():
+    ref, comps, _, _ = make_synthetic_burst(ROUTE_SIZE, ROUTE_SIZE,
+                                            n_frames=ROUTE_FRAMES, seed=0)
+    return ref, comps
+
+
+@pytest.fixture(scope="module")
+def jax_routes(route_burst):
+    """The JAX image of each route key, computed once."""
+    ref, comps = route_burst
+    std, diff = curves()
+    cache = {}
+
+    def image(scale, impl, form):
+        key = jax_route_key(scale, impl, form)
+        if key not in cache:
+            cache[key] = np.asarray(j_pipeline.make_pipeline(
+                route_config(scale, impl, form), DEFAULT_CFA, WB)(
+                jnp.asarray(ref), jnp.asarray(comps), jnp.asarray(std),
+                jnp.asarray(diff))[0])
+        return cache[key]
+    return image
+
+
+@pytest.mark.parametrize("form", ["scan", "fused", "chunked"])
+@pytest.mark.parametrize("impl", MERGE_IMPLS)
+@pytest.mark.parametrize("scale", [2, 1.5])
+def test_merge_impl_route_against_jax(route_burst, jax_routes, scale, impl, form):
+    """Each ``tpu.merge_impl`` in each form: where the JAX package refuses
+    the route the port raises the same ``ValueError`` (JAX's scan form
+    with ``pallas`` at x1.5 fails in an assertion first); elsewhere the
+    image is within the e2e bounds of the JAX image of the same route, and
+    ``fused`` where the merge is not tiled (``gather``, or ``auto`` at
+    x1.5) is the scan form bit for bit."""
+    ref, comps = route_burst
+    std, diff = curves()
+    config = route_config(scale, impl, form)
+    err = route_error(scale, impl, form)
+    if err is not None:
+        with pytest.raises(ValueError, match=err):
+            pipeline.make_pipeline(config, DEFAULT_CFA, WB, "cpu")
+        with pytest.raises((ValueError, AssertionError)):
+            j_pipeline.make_pipeline(config, DEFAULT_CFA, WB)(
+                jnp.asarray(ref), jnp.asarray(comps), jnp.asarray(std),
+                jnp.asarray(diff))
+        return
+    img_t, _ = pipeline.make_pipeline(config, DEFAULT_CFA, WB, "cpu")(ref, comps, std,
+                                                                      diff)
+    out = round(scale * ROUTE_SIZE)
+    assert tuple(img_t.shape) == (out, out, 3)
+    d = np.abs(n(img_t) - jax_routes(scale, impl, form))[8:-8, 8:-8]
+    assert d.mean() < 1e-4 and d.max() < 1e-3, (d.mean(), d.max())
+    if form == "fused" and pipeline.pipeline_form(config) == "scan":
+        config.tpu.pipeline = "scan"
+        img_s, _ = pipeline.make_pipeline(config, DEFAULT_CFA, WB, "cpu")(
+            ref, comps, std, diff)
+        assert torch.equal(img_t, img_s)
+    assert kernel_counts() == (0,) * 8
+
+
+#: (scale, merge_impl) of the sharded routes: K5's banded branch at x2
+#: unless gather, the gather merge at x1.5 whatever the impl (the JAX
+#: package's sharded pipeline refuses no impl there)
+SHARDED_ROUTES = [(2, "auto"), (2, "tiled"), (2, "gather"), (2, "pallas"),
+                  (1.5, "auto"), (1.5, "tiled")]
+
+
+@pytest.fixture(scope="module")
+def sharded_routes(route_burst, tmp_path_factory):
+    """The port's sharded pipeline on a (1, 1) mesh in one gloo rank, once
+    per route of :data:`SHARDED_ROUTES`: ``{route: image}``."""
+    ref, comps = route_burst
+    cfgs = [configs.merge({}, route_config(scale, impl, "scan"))
+            for scale, impl in SHARDED_ROUTES]
+    images = spawn_ranks(ranks.sharded_images, 1, args=(t(ref), t(comps), cfgs),
+                         tmp_dir=str(tmp_path_factory.mktemp("routes")), threads=1)[0]
+    return dict(zip(SHARDED_ROUTES, images))
+
+
+@pytest.mark.parametrize("route", SHARDED_ROUTES)
+def test_sharded_merge_impl_route_against_jax(route_burst, sharded_routes, route):
+    """The sharded pipeline routes ``tpu.merge_impl`` as the JAX package's
+    does (``hmsr_tpu/parallel/sharded.py:82-88``): the image of a one-rank
+    mesh within the e2e bounds of the JAX sharded pipeline on a (1, 1)
+    mesh."""
+    ref, comps = route_burst
+    scale, impl = route
+    std, diff = curves()
+    frames, weights = j_pad_frames(comps, 1)
+    pipe = j_make_sharded(route_config(scale, impl, "scan"), DEFAULT_CFA, WB,
+                          j_make_mesh(1, 1))
+    want = pipe(jnp.asarray(ref), jnp.asarray(frames), jnp.asarray(weights),
+                jnp.asarray(std), jnp.asarray(diff))[0]
+    got = sharded_routes[route]
+    out = round(scale * ROUTE_SIZE)
+    assert tuple(got.shape) == (out, out, 3)
+    d = np.abs(n(got) - np.asarray(want))[8:-8, 8:-8]
+    assert d.mean() < 1e-4 and d.max() < 1e-3, (d.mean(), d.max())

@@ -83,7 +83,7 @@ def kernel_counts():
             cuda_ica.ica_fused.launches, cuda_warp.upscale_warp.launches,
             cuda_merge.merge_accumulate.launches,
             cuda_merge.merge_burst_accumulate.launches,
-            cuda_merge.merge_fused_accumulate.launches)
+            cuda_merge.merge_fused_accumulate.launches, cuda_merge.refill_groups.launches)
 
 
 def block_imports(monkeypatch, *names):

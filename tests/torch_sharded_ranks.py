@@ -51,3 +51,12 @@ def process_mesh(rank, ref, comps, config):
     noise curves drawn by :func:`affine_mc`: ``(image, debug)``."""
     P.run_fast_MC = affine_mc(rank)
     return P.process_arrays(ref, comps, config, cfa=CFA, device="cpu")
+
+
+def sharded_images(rank, ref, comps, cfgs):
+    """The sharded pipeline on a (1, 1) mesh once per configuration of
+    ``cfgs``, with the affine curves: the images."""
+    mesh = make_mesh(1, 1)
+    frames, weights = pad_frames(comps, 1)
+    return [make_sharded_pipeline(config, CFA, WB, mesh, "cpu")(
+        ref, frames, weights, *affine_curves())[0] for config in cfgs]
