@@ -135,11 +135,20 @@ and power limit:
    relative, and 1e-5 relative against K5' over the same frames into zeros
    followed by the plain reference merge; the values on either side of
    the refill's starvation threshold counted; device time, host us per
-   call, the plain version's time, the bound, registers and spills; then
-   K7 (``csrc/refill.cu``) against ``normalize_groups`` and the crop, bit
-   for bit, on accumulators with starved values and blocks at K6's padded
-   geometry, per slab and per tile at Ts=16, 32 and 64 x2, grey, and x1
-   and x3 on 1024x1024, with the same numbers; (b) the
+   call, the plain version's time, the bound, registers and spills; K7
+   (``csrc/refill.cu``) on the main case's real accumulators: per slab and
+   per tile on K6's against ``normalize_groups`` and the crop, and in the
+   image layout on K5''s with the reference merge (the scan forms'
+   accumulators) against ``normalize_accum(refill_border=32)``, bit for
+   bit, timed;
+   then K7 per slab and per tile on the stress input (starved values and
+   blocks in every piece) at K6's padded geometry, Ts=16, 32 and 64 x2,
+   grey, and x1 and x3 on 1024x1024, and K7's image layout against
+   ``normalize_accum(refill_border=32)`` at the scan forms' bright, grey,
+   x3 and x1.5 accumulators, 1024x1024 as strided planes and 60x75 (the
+   refill everywhere, scalar), starved pixels at depths 0-3, 28-44 and
+   inside: bit for bit, with the same numbers and the pieces that took
+   the slow path; (b) the
    512x512 8-frame slice in the fused (slab and tiled) and vmapped forms,
    card against CPU with phase 3's bounds, in Bayer, grey, iso and with the
    denoiser, vmapped also against the card's scan, fused at x1.5 equal to
@@ -152,7 +161,8 @@ and power limit:
 
 The line before the last is a JSON object with one entry per kernel (K5
 and K5' with their four variants under ``variants``, K5 with its banded
-branch under ``banded``, K6 and K7 with their cases under ``cases``); the
+branch under ``banded``, K6 and K7 with their cases under ``cases``, K7's
+of both layouts); the
 last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package ``hmsr_tpu``.
@@ -189,11 +199,12 @@ from hmsr_tpu_torch.models.pipeline import (_use_tiled, accum_shape, make_pipeli
                                              pipeline_form, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
-from hmsr_tpu_torch.ops.accumfix import STARVED_DEN
+from hmsr_tpu_torch.ops.accumfix import REFILL_BORDER, STARVED_DEN, normalize_accum
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
                                       affine_curves, burst_config, burst_snr,
-                                      make_burst)
+                                      edge_starved_accumulators, make_burst,
+                                      starved_accumulators)
 
 KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K1": ("K1 block matching", cuda_ica.block_match, "hmsr_tpu_torch/csrc/bm.cu",
@@ -215,7 +226,8 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K6": ("K6 burst-and-reference fused merge (every frame, then the reference)",
            cuda_merge.merge_fused_accumulate, "hmsr_tpu_torch/csrc/merge_fused.cu",
            "hmsr_tpu/models/merge_slab.py:31"),
-    "K7": ("K7 fused form's refill and divide per slab or tile", cuda_merge.refill_groups,
+    "K7": ("K7 refill and divide (per slab or tile in the fused form, the border strips "
+           "of the whole accumulators in the others)", cuda_merge.refill_groups,
            "hmsr_tpu_torch/csrc/refill.cu", "hmsr_tpu/models/merge_slab.py:383"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
@@ -231,9 +243,9 @@ CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5)
 BRIGHT_LAUNCHES = {
     "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0,
-             "K7": 0},
+             "K7": 1},
     "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0,
-                "K7": 0},
+                "K7": 1},
     "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1,
               "K7": 1}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
@@ -883,10 +895,11 @@ def expected_launches(ref, config, n_cmp):
     else after K1); one K4 per frame and two at init (none with robustness
     off); one K5 per frame
     (scan, vmapped), or one K5' per chunk of ``tpu.merge_chunk`` frames
-    (chunked), or one K6 and one K7 per burst (fused), and none of them at a
+    (chunked), or one K6 per burst (fused), and none of them at a
     fractional scale (the gather merge, plain torch; fused runs the scan
-    form there). With the decimating grey the levels are those of the
-    half-size grey image."""
+    form there); one K7 per burst in every form (per slab or tile in the
+    fused form, the border strips otherwise). With the decimating grey the
+    levels are those of the half-size grey image."""
     state = init_alignment(to_grey(ref, config), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
@@ -903,7 +916,7 @@ def expected_launches(ref, config, n_cmp):
     return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
             "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
             "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
-            "K6": 1 if form == "fused" else 0, "K7": 1 if form == "fused" else 0}
+            "K6": 1 if form == "fused" else 0, "K7": 1}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -2013,13 +2026,17 @@ def card_scenes(gen, n, shape, device, block=4):
     return (scene + 0.02 * noise).clamp(0, 1).contiguous()
 
 
-def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, ptxas):
+def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, ptxas,
+                       refill=False):
     """K6 on F frames and the reference against its plain version (1e-5
     relative), and against K5' over the same frames into zeros followed by
     the plain reference merge (1e-5 relative, on the image's rows and
     columns); timed. Frames, robustness and the accumulated robustness are
-    drawn on the card from ``gen``, the flows from ``rng``. Returns the
-    row."""
+    drawn on the card from ``gen``, the flows from ``rng``. With ``refill``,
+    K7 on these real accumulators too (:func:`check_refill_real`): per slab
+    on K6's, in the image layout on K5''s with the reference merge (the
+    scan forms' accumulators), and per tile on K6's. Returns the row, K7's
+    rows under ``refill_rows``."""
     H, W = raw_shape
     grey, iso = MERGE_VARIANTS[variant]
     config = burst_config(raw_shape, 40)
@@ -2059,6 +2076,22 @@ def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, 
     cuda_merge.merge_ref_plain(ref, ref_covs, n_s, d_s, CFA_RGGB, s, grey, iso, **dn)
     err_sn = nan_max_abs(n_k[:, :s * H, :s * W], n_s) / float(n_s.abs().max())
     err_sd = nan_max_abs(d_k[:, :s * H, :s * W], d_s) / float(d_s.abs().max())
+    refill_rows = []
+    if refill:
+        B, grid = Ts * s, (s * H, s * W)
+        refill_rows = [
+            check_refill_real("slab", "K6's accumulators (the fused form)", n_k, d_k,
+                              lambda: cuda_merge.refill_groups(n_k, d_k, B, *grid),
+                              lambda: cuda_merge.refill_plain(n_k, d_k, B, *grid), ptxas),
+            check_refill_real("image", "K5' and the reference merge's (the scan forms)",
+                              n_s, d_s,
+                              lambda: cuda_merge.refill_image(n_s, d_s, REFILL_BORDER),
+                              lambda: normalize_accum(n_s, d_s,
+                                                      refill_border=REFILL_BORDER), ptxas),
+            check_refill_real("tile", "K6's accumulators (fused_impl: tiled)", n_k, d_k,
+                              lambda: cuda_merge.refill_groups(n_k, d_k, B, *grid, True),
+                              lambda: cuda_merge.refill_plain(n_k, d_k, B, *grid, True),
+                              ptxas)]
     del n_s, d_s, n_k, d_k
     tk = timed(lambda: cuda_merge.merge_fused_accumulate(*args, **kw))
     rr = int(dn["rad_max"]) if denoise else 1
@@ -2086,85 +2119,157 @@ def check_fused_kernel(device, raw_shape, Ts, s, variant, denoise, F, rng, gen, 
     return dict(Ts=Ts, s=s, variant=variant, denoise=denoise, frames=F, err=err,
                 rel_err=max(err_n, err_d, err_sn, err_sd), starved_flips=flips,
                 ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0],
-                bound_by=bnd[1], registers=regs["registers"])
+                bound_by=bnd[1], registers=regs["registers"], refill_rows=refill_rows)
 
 
 def phase_fused_kernel(device, ptxas, seed=12):
-    """Phase 12 (a). Returns the rows of every case."""
+    """Phase 12 (a), K6's part (and K7 on the main case's accumulators).
+    Returns the rows of every case."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device).manual_seed(seed)
     rows = [check_fused_kernel(device, (3000, 4000), Ts, s, v, dn, F_MAIN, rng, gen,
-                               ptxas) for Ts, s, v, dn in FUSED_MAIN_CASES]
+                               ptxas, refill=i == 0)
+            for i, (Ts, s, v, dn) in enumerate(FUSED_MAIN_CASES)]
     rows += [check_fused_kernel(device, (1024, 1024), Ts, s, v, dn, F_SMALL, rng, gen,
                                 ptxas) for Ts, s, v, dn in FUSED_SMALL_CASES]
     return rows
 
 
-#: (Ts, scale, grey, tiles, raw shape) of K7's cases in phase 12 (a): the
-#: main path's accumulators first
+#: (Ts, scale, grey, tiles, raw shape) of K7's cases per group in phase 12
+#: (a), on the stress input: the main path's accumulators first
 REFILL_CASES = [(16, 2, False, False, (3000, 4000)), (16, 2, False, True, (3000, 4000)),
                 (32, 2, False, False, (3000, 4000)), (32, 2, False, True, (3000, 4000)),
                 (64, 2, False, False, (3000, 4000)), (64, 2, False, True, (3000, 4000)),
                 (16, 2, True, False, (3000, 4000)), (16, 1, False, False, (1024, 1024)),
                 (16, 1, False, True, (1024, 1024)), (16, 3, False, False, (1024, 1024)),
                 (16, 3, False, True, (1024, 1024))]
+#: (name, (c, H, W)) of K7's image-layout cases in phase 12 (a): the scan
+#: forms' accumulators of the bright, grey, x3 and x1.5 cells, 1024^2 as
+#: every other plane of a taller buffer (the sharded pipeline's view, no
+#: copy), and a side under 2 (32 + 8) with a width no multiple of 4 (the
+#: refill everywhere; scalar loads and stores)
+IMAGE_CASES = [("bright", (3, 6000, 8000)), ("grey", (1, 6000, 8000)),
+               ("x3", (3, 9000, 12000)), ("x1.5", (3, 4500, 6000)),
+               ("1024^2 strided planes", (3, 1024, 1024)), ("under 2M", (3, 60, 75))]
+#: K7's output pieces (rows, columns): the slow path's unit
+REFILL_PIECE = (32, 64)
 
 
-def starved_accumulators(gen, shape, device):
-    """num/den of a fused merge's kind at ``shape``: den in (0, 20), 7 % of
-    the values and every 3x3 block of a sparse grid starved (below
-    ``STARVED_DEN``; blocks need both passes of the refill), num = den x an
-    image value in [0, 1]."""
-    den = torch.rand(shape, generator=gen, device=device) * 20.0
-    den[torch.rand(shape, generator=gen, device=device) < 0.07] = 0.0
-    blocks = torch.rand((shape[0], shape[1] // 3, shape[2] // 3), generator=gen,
-                        device=device) < 0.02
-    blocks = blocks.repeat_interleave(3, 1).repeat_interleave(3, 2)
-    den[:, :blocks.shape[1], :blocks.shape[2]][blocks] = 5e-5
-    num = den * torch.rand(shape, generator=gen, device=device)
-    return num.contiguous(), den.contiguous()
+def slow_pieces(starved):
+    """The K7 pieces (:data:`REFILL_PIECE`, from the origin: those of the
+    image layout, and of the slab layout where B is a multiple of their 32
+    rows) that hold a True of the (c, h, w) mask ``starved``, and all
+    pieces."""
+    pr, pc = REFILL_PIECE
+    c, h, w = starved.shape
+    m = torch.zeros((c, -(-h // pr) * pr, -(-w // pc) * pc), dtype=torch.bool,
+                    device=starved.device)
+    m[:, :h, :w] = starved
+    m = m.reshape(c, m.shape[1] // pr, pr, m.shape[2] // pc, pc).any(4).any(2)
+    return int(m.sum()), m.numel()
+
+
+def border_region(h, w, device, border=REFILL_BORDER):
+    """The (h, w) mask of the pixels within ``border`` of an edge."""
+    ys = torch.arange(h, device=device)
+    xs = torch.arange(w, device=device)
+    return ((ys < border) | (ys >= h - border))[:, None] | \
+        ((xs < border) | (xs >= w - border))[None, :]
+
+
+def refill_row(layout, what, num, den, out_k, out_p, ms_p, tk, slow, ptxas):
+    """Log one K7 case and gate it (max|d| 0, NaN where the plain version
+    has NaN); the row. ``slow``: (pieces taking the slow path, pieces), or
+    None where the pieces do not tile from the origin."""
+    err = nan_max_abs(out_k, out_p)
+    bnd = bound(3 * nbytes(out_k), 0)    # num and den at each output value, the image
+    regs = ptxas[REFILL_KERNEL]
+    n_starved = int((~(den > STARVED_DEN)).sum())
+    pieces = "" if slow is None else f"; {slow[0]} of {slow[1]} pieces on the slow path"
+    log(f"  K7 {layout} {what}, {tuple(num.shape)} -> {tuple(out_k.shape)}: max|d| "
+        f"against its plain version {err:.3e} ({n_starved} starved values{pieces}); "
+        f"{time_text(tk)}, plain {ms_p:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}); {REFILL_KERNEL} {regs['registers']} "
+        f"registers, spills {regs['spill_stores']}/{regs['spill_loads']} B [{CARD}]")
+    if err != 0.0:
+        raise AssertionError(f"K7 {layout} {what}: max|d| {err:.3e} against its plain "
+                             f"version")
+    return dict(layout=layout, what=what, shape=list(num.shape), err=err, ms=tk.ms,
+                host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0], bound_by=bnd[1],
+                slow_pieces=slow and slow[0], pieces=slow and slow[1])
+
+
+def plain_ms(fn):
+    """``fn()`` once between CUDA events: (its result, ms)."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def check_refill_real(layout, what, num, den, kernel, plain, ptxas):
+    """K7 (``kernel()``, in ``layout``) on real accumulators against
+    ``plain()`` bit for bit; timed."""
+    out_k = kernel()
+    out_p, ms_p = plain_ms(plain)
+    h, w = out_k.shape[1:]
+    starved = ~(den[:, :h, :w] > STARVED_DEN)
+    if layout == "image":
+        starved &= border_region(h, w, den.device)
+    row = refill_row(layout, what, num, den, out_k, out_p, ms_p, timed(kernel),
+                     None if layout == "tile" else slow_pieces(starved), ptxas)
+    row["input"] = "real"
+    return row
 
 
 def check_refill_kernel(device, Ts, s, grey, tiles, raw_shape, gen, ptxas):
-    """K7 against its plain version (``normalize_groups`` and the crop) on
-    the card, bit for bit, on :func:`starved_accumulators` at K6's padded
-    geometry; timed. Returns the row."""
+    """K7 per group against its plain version (``normalize_groups`` and the
+    crop) on the card, bit for bit, on :func:`starved_accumulators` at K6's
+    padded geometry; timed. Returns the row."""
     H, W = raw_shape
     B = Ts * s
     shape = cuda_merge.fused_accum_shape(raw_shape, Ts, s, grey)
     num, den = starved_accumulators(gen, shape, device)
     args = (num, den, B, H * s, W * s, tiles)
     out_k = cuda_merge.refill_groups(*args)
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    out_p = cuda_merge.refill_plain(*args)
-    t1.record()
-    torch.cuda.synchronize()
-    ms_p = t0.elapsed_time(t1)
-    err = nan_max_abs(out_k, out_p)
-    n_starved = int((den <= STARVED_DEN).sum())
-    del out_p
-    tk = timed(lambda: cuda_merge.refill_groups(*args))
-    bnd = bound(nbytes(num, den, out_k), 0)
-    regs = ptxas[REFILL_KERNEL]
-    tag = (f"{'grey' if grey else 'Bayer'} Ts={Ts} x{s} {'tiles' if tiles else 'slabs'} "
-           f"of B={B}, {shape} -> {tuple(out_k.shape)}")
-    log(f"  K7 {tag}: max|d| against its plain version {err:.3e} ({n_starved} starved "
-        f"values); {time_text(tk)}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}); {REFILL_KERNEL} {regs['registers']} registers, spills "
-        f"{regs['spill_stores']}/{regs['spill_loads']} B [{CARD}]")
-    if err != 0.0:
-        raise AssertionError(f"K7 {tag}: max|d| {err:.3e} against normalize_groups")
-    return dict(Ts=Ts, s=s, grey=grey, tiles=tiles, err=err, ms=tk.ms,
-                host_us=tk.host_us, plain_ms=ms_p, bound_ms=bnd[0], bound_by=bnd[1],
-                registers=regs["registers"])
+    out_p, ms_p = plain_ms(lambda: cuda_merge.refill_plain(*args))
+    what = f"{'grey' if grey else 'Bayer'} Ts={Ts} x{s} of B={B}"
+    slow = slow_pieces(~(den[:, :H * s, :W * s] > STARVED_DEN)) \
+        if B % REFILL_PIECE[0] == 0 and not tiles else None
+    row = refill_row("tile" if tiles else "slab", what, num, den, out_k, out_p, ms_p,
+                     timed(lambda: cuda_merge.refill_groups(*args)), slow, ptxas)
+    row.update(Ts=Ts, s=s, grey=grey, tiles=tiles, input="stress")
+    return row
+
+
+def check_refill_image(device, what, shape, gen, ptxas):
+    """K7's image layout against ``normalize_accum(refill_border=32)`` on
+    the card, bit for bit, on :func:`edge_starved_accumulators`; timed.
+    Returns the row."""
+    num, den = edge_starved_accumulators(gen, shape, device, strided="strided" in what)
+    out_k = cuda_merge.refill_image(num, den, REFILL_BORDER)
+    out_p, ms_p = plain_ms(lambda: normalize_accum(num, den, refill_border=REFILL_BORDER))
+    starved = ~(den > STARVED_DEN)
+    if min(shape[1:]) > 2 * (REFILL_BORDER + 8):
+        starved &= border_region(*shape[1:], device)
+    row = refill_row("image", what, num, den, out_k, out_p, ms_p,
+                     timed(lambda: cuda_merge.refill_image(num, den, REFILL_BORDER)),
+                     slow_pieces(starved), ptxas)
+    row["input"] = "edge-starved"
+    return row
 
 
 def phase_refill_kernel(device, ptxas, seed=13):
-    """Phase 12 (a), K7's part. Returns the rows of every case."""
+    """Phase 12 (a), K7's part: per group on the stress input, then the
+    image layout. Returns (the per-group rows, the image rows)."""
     gen = torch.Generator(device).manual_seed(seed)
-    return [check_refill_kernel(device, Ts, s, grey, tiles, shape, gen, ptxas)
-            for Ts, s, grey, tiles, shape in REFILL_CASES]
+    groups = [check_refill_kernel(device, Ts, s, grey, tiles, shape, gen, ptxas)
+              for Ts, s, grey, tiles, shape in REFILL_CASES]
+    images = [check_refill_image(device, what, shape, gen, ptxas)
+              for what, shape in IMAGE_CASES]
+    return groups, images
 
 
 def scan_config(config):
@@ -2358,25 +2463,40 @@ def fused_entry(rows, launches, slice_k6, ptxas):
                                      "registers", "err", "rel_err")} for e in rows]}
 
 
-def refill_entry(rows, launches, ptxas):
-    """K7's entry of the ``kernels`` line: the main path's case (the
-    3x6016x8000 accumulators of the fused bright burst, Ts=16 x2, per
-    slab), its launches per run of the fused bright burst, and the rows of
-    every case of phase 12 (a)."""
-    main = rows[0]
+def refill_entry(groups, images, real, launches, ptxas):
+    """K7's entry of the ``kernels`` line: the main path's case (3x6016x8000
+    accumulators, Ts=16 x2, per slab) on the stress input, as in earlier
+    versions of this line (``ms_input``), beside it the same on K6's real
+    accumulators of phase 12 (a)'s main case (``real_ms``) and the scan
+    forms' image layout on that case's K5' and reference accumulators; its
+    launches per run of the fused and of the scan bright burst; every case
+    of both layouts."""
+    main = groups[0]
     name, _, src, rep = KERNELS["K7"]
+    rows = real + groups + images
     return {
         "name": name, "route": "cuda", "source": src, "replaces": rep,
-        "replaces_also": "hmsr_tpu/models/merge_fused.py:356",
+        "replaces_also": ["hmsr_tpu/models/merge_fused.py:356",
+                          "hmsr_tpu/models/pipeline.py:289",
+                          "hmsr_tpu/models/pipeline.py:325",
+                          "hmsr_tpu/models/pipeline.py:365",
+                          "hmsr_tpu/parallel/sharded.py:226"],
         "replaces_kind": "XLA (no pl.pallas_call)",
-        "launches": launches, "launches_in": "the fused bright burst (phase 12 (c)), "
-        "per run", "max_abs_err": max(e["err"] for e in rows), "ms": main["ms"],
+        "layouts": ["slab", "tile", "image"],
+        "launches": launches["fused"], "launches_in": "the fused bright burst (phase 12 "
+        "(c)), per run", "launches_scan": launches["scan"],
+        "max_abs_err": max(e["err"] for e in rows), "ms": main["ms"],
         "host_us": main["host_us"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "ms_input": f"stress ({main['what']}: starved_accumulators, every piece on "
+        "the slow path), the input of ms in earlier versions of this line",
+        "real_ms": real[0]["ms"], "real_plain_ms": real[0]["plain_ms"],
+        "real_input": real[0]["what"],
+        "image_ms": real[1]["ms"], "image_bound_ms": real[1]["bound_ms"],
         "registers": ptxas[REFILL_KERNEL]["registers"],
-        "cases": [{k: e[k] for k in ("Ts", "s", "grey", "tiles", "ms", "host_us",
-                                     "plain_ms", "bound_ms", "bound_by", "err")}
-                  for e in rows]}
+        "cases": [{k: e[k] for k in ("layout", "what", "input", "shape", "ms", "host_us",
+                                     "plain_ms", "bound_ms", "bound_by", "err",
+                                     "slow_pieces", "pieces")} for e in rows]}
 
 
 def merge_variant_entries(key, rows, ptxas, entry, variant_launches):
@@ -2454,7 +2574,7 @@ def main():
     log("phase 12 the fused and vmapped forms: K6, K7, the 512^2 slice, the full "
         "burst, accuracy")
     fused_rows = phase_fused_kernel(device, ptxas)
-    refill_rows = phase_refill_kernel(device, ptxas)
+    refill_groups_rows, refill_image_rows = phase_refill_kernel(device, ptxas)
     slice_k6 = phase_fused_slice(device)
     frames = make_burst(3000, 4000, 20, 0, device)
     fused = phase_fused_full(frames, device, full_image)
@@ -2470,7 +2590,9 @@ def main():
                                        ptxas))
             continue
         if key == "K7":
-            entries.append(refill_entry(refill_rows, fused["launches"]["K7"], ptxas))
+            entries.append(refill_entry(
+                refill_groups_rows, refill_image_rows, fused_rows[0]["refill_rows"],
+                {"fused": fused["launches"]["K7"], "scan": launches["K7"]}, ptxas))
             continue
         # per frame of the main path: the Ts=16 launches, each as often as a
         # frame of the path launches it

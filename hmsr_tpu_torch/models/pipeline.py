@@ -16,7 +16,8 @@ round(s H), round(s W))`` at any scale s.
   frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
   covariances -> merge into ``(num, den)`` in place: K5 where the merge is
   tiled, the gather merge (:func:`.merge.merge`, plain torch) otherwise;
-  then the reference merge and the border-strip refill.
+  then the reference merge and the border-strip refill (one launch of K7,
+  :func:`normalize_image`).
 - ``chunked``: the same analysis for every frame first, its flows,
   robustness maps and covariances stacked; then one burst-fused merge (K5')
   per chunk of ``tpu.merge_chunk`` frames (default 5; the last chunk is
@@ -53,8 +54,8 @@ form raises ``NotImplementedError``. The stages of the loop
 import numpy as np
 import torch
 
-from ..ops.accumfix import REFILL_BORDER, normalize_accum
-from ..ops.cuda_merge import merge_burst_accumulate
+from ..ops.accumfix import REFILL_BORDER
+from ..ops.cuda_merge import merge_burst_accumulate, refill_image
 from ..ops.grey import compute_grey_image
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
@@ -195,9 +196,10 @@ def merge_reference(ref_img, num, den, cfa_pattern, config, acc_r=None,
 
 
 def normalize_image(num, den):
-    """The border-strip refill and divide of the whole accumulators: the
+    """The border-strip refill and divide of the whole accumulators, one
+    launch of K7 on the card (:func:`~..ops.cuda_merge.refill_image`): the
     ``(round(s H), round(s W), c)`` image."""
-    return normalize_accum(num, den, refill_border=REFILL_BORDER).permute(1, 2, 0)
+    return refill_image(num, den, REFILL_BORDER).permute(1, 2, 0)
 
 
 def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,

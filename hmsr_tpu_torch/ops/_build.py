@@ -63,7 +63,7 @@ SIGNATURES = {
     "hmsr_merge_layout": [_I, _I, _I, _I, _I, _P],
     "hmsr_merge_fused": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "hmsr_refill": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "hmsr_refill": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "hmsr_cta_probe": [_I, _P, _I, _P, _I, _P],
     "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
 }

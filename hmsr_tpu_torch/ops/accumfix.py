@@ -10,8 +10,10 @@ vmapped pipelines). The fused pipeline's merges normalize per group
 instead (:func:`normalize_groups`): each B-row slab
 (``models/merge_slab.py``) or each (B, B) tile (``models/merge_fused.py``)
 gets the full refill, interior included, with zero context past its edges.
-On the card that is K7 (:func:`hmsr_tpu_torch.ops.cuda_merge.refill_groups`),
-which this function's operations define bit for bit.
+On the card both are K7, which these functions' operations define bit for
+bit: :func:`hmsr_tpu_torch.ops.cuda_merge.refill_groups` per group and
+:func:`hmsr_tpu_torch.ops.cuda_merge.refill_image` for the border strips,
+which it computes as :func:`normalize_border_whole` formulates them.
 """
 
 import torch
@@ -53,22 +55,54 @@ def _strip_image(num, den):
     return n / torch.clamp(d, min=EPSILON_DIV)
 
 
+def strip_width(shape, refill_border):
+    """The width B of the border strips that ``normalize_accum(...,
+    refill_border=B)`` keeps the refill to on an image of ``shape`` (its
+    last two entries); None where it refills everywhere: no
+    ``refill_border``, or a side of ``2 (B + 8)`` or less (no distinct
+    strips)."""
+    if refill_border is None:
+        return None
+    B = int(refill_border)
+    M = B + _REFILL_MARGIN
+    h, w = shape[-2:]
+    return B if h > 2 * M and w > 2 * M else None
+
+
 def normalize_accum(num, den, refill_border=None):
     """``(c, H, W)`` accumulators -> ``(c, H, W)`` image."""
-    if refill_border is not None:
-        B = int(refill_border)
+    B = strip_width(num.shape, refill_border)
+    if B is not None:
         M = B + _REFILL_MARGIN
         h, w = num.shape[-2:]
-        if h > 2 * M and w > 2 * M:
-            img = num / torch.clamp(den, min=EPSILON_DIV)
-            img[..., :B, :] = _strip_image(num[..., :M, :], den[..., :M, :])[..., :B, :]
-            img[..., h - B:, :] = _strip_image(
-                num[..., h - M:, :], den[..., h - M:, :])[..., M - B:, :]
-            img[..., :, :B] = _strip_image(num[..., :, :M], den[..., :, :M])[..., :, :B]
-            img[..., :, w - B:] = _strip_image(
-                num[..., :, w - M:], den[..., :, w - M:])[..., :, M - B:]
-            return img
+        img = num / torch.clamp(den, min=EPSILON_DIV)
+        img[..., :B, :] = _strip_image(num[..., :M, :], den[..., :M, :])[..., :B, :]
+        img[..., h - B:, :] = _strip_image(
+            num[..., h - M:, :], den[..., h - M:, :])[..., M - B:, :]
+        img[..., :, :B] = _strip_image(num[..., :, :M], den[..., :, :M])[..., :, :B]
+        img[..., :, w - B:] = _strip_image(
+            num[..., :, w - M:], den[..., :, w - M:])[..., :, M - B:]
+        return img
     return _strip_image(num, den)
+
+
+def normalize_border_whole(num, den, refill_border):
+    """:func:`normalize_accum` with ``refill_border=B`` as K7's image layout
+    computes it: the refill of the whole image where a pixel lies within B
+    of an edge, the guarded divide elsewhere (everywhere the refill where
+    :func:`strip_width` says so). Equal to it bit for bit: the strips' 8-px
+    margin makes their refill exact at every pixel they keep, and a
+    well-fed pixel keeps its divide whatever its neighbours hold. Not on the
+    path: it holds that formulation on the CPU."""
+    full = _strip_image(num, den)
+    B = strip_width(num.shape, refill_border)
+    if B is None:
+        return full
+    h, w = num.shape[-2:]
+    ys = torch.arange(h, device=num.device)
+    xs = torch.arange(w, device=num.device)
+    edge = ((ys < B) | (ys >= h - B))[:, None] | ((xs < B) | (xs >= w - B))[None, :]
+    return torch.where(edge, full, num / torch.clamp(den, min=EPSILON_DIV))
 
 
 def normalize_groups(num, den, B, tiles=False):

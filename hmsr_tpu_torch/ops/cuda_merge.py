@@ -1,14 +1,16 @@
 """K5 (merge accumulation of one frame), K5' (the same over a chunk of
 frames, accumulators read and written once), K6 (the whole burst and the
-reference frame, accumulators written once) and K7 (the fused form's refill
-and divide per group of K6's accumulators): CUDA kernel wrappers and their
-plain PyTorch versions.
+reference frame, accumulators written once) and K7 (the refill and divide:
+per group of K6's accumulators in the fused form, on the border strips of
+the whole accumulators in the others): CUDA kernel wrappers and their plain
+PyTorch versions.
 
 Counterpart of :mod:`hmsr_tpu.ops.pallas_merge`: ``merge_pallas`` (per
 frame) and ``merge_burst_pallas`` (frames grid); and of the JAX package's
 XLA-only fused merges ``models/merge_slab.py:merge_burst_slab`` and
 ``models/merge_fused.py:merge_burst_tiled`` up to their normalization (K6)
-and of that normalization (K7). The kernels are ``csrc/merge.cu`` and
+and of that normalization and the border-strip one,
+``ops/accumfix.py:normalize_accum`` (K7). The kernels are ``csrc/merge.cu`` and
 ``csrc/merge_burst.cu`` (both replace ``pallas_merge.py:_merge_group_kernel``),
 ``csrc/merge_fused.cu`` and ``csrc/refill.cu``; their
 headers say what bounds them on the H100 and how the design answers it: one
@@ -27,8 +29,8 @@ fused merges' padded geometry (:func:`fused_accum_shape`). The reference
 frame's merge, plain, is :func:`merge_ref_plain`. A wrapper launches its
 kernel for CUDA tensors and runs the plain version only for CPU tensors;
 ``merge_accumulate.launches``, ``merge_burst_accumulate.launches``,
-``merge_fused_accumulate.launches`` and ``refill_groups.launches`` count
-kernel launches,
+``merge_fused_accumulate.launches`` and ``refill_groups.launches`` (every
+K7 launch, :func:`refill_image`'s too) count kernel launches,
 ``merge_accumulate.band_launches`` those of K5 into a band.
 """
 
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .accumfix import STARVED_DEN, normalize_groups
+from .accumfix import STARVED_DEN, normalize_accum, normalize_groups, strip_width
 from ..utils.types import DEFAULT_FLOAT, EPSILON_DIV
 
 
@@ -563,32 +565,69 @@ def refill_plain(num, den, B, out_h, out_w, tiles=False):
 
 
 def refill_groups(num, den, B, out_h, out_w, tiles=False):
-    """K7: the fused form's refill and divide. ``num``/``den``: K6's padded
-    ``(c, h, w)`` accumulators, h and w whole multiples of ``B = Ts*s``,
-    contiguous float32 on one device; each B-row slab (or each (B, B) tile
+    """K7 per group: the fused form's refill and divide. ``num``/``den``:
+    K6's padded ``(c, h, w)`` accumulators, h and w whole multiples of ``B =
+    Ts*s``, float32 on one device; each B-row slab (or each (B, B) tile
     with ``tiles``) is refilled and divided on its own, as
     :func:`~.accumfix.normalize_groups` does, and the image is the
     ``(c, out_h, out_w)`` crop, a new tensor."""
     B, out_h, out_w = int(B), int(out_h), int(out_w)
     dev = num.device
-    _build.check_f32("num", num, 3, dev)
-    _build.check_f32("den", den, 3, dev)
-    c, h, w = num.shape
-    _build.check_arg(tuple(den.shape) == (c, h, w), f"num {tuple(num.shape)}, den "
-                     f"{tuple(den.shape)}")
+    c, h, w = _check_accumulators(num, den)
     _build.check_arg(B >= 1 and h >= B and w >= B and h % B == 0 and w % B == 0,
                      f"accumulators {(h, w)} are no whole groups of B = {B}")
     _build.check_arg(1 <= out_h <= h and 1 <= out_w <= w,
                      f"crop {(out_h, out_w)} of {(h, w)}")
     if dev.type == "cpu":
         return refill_plain(num, den, B, out_h, out_w, tiles)
-    _build.require_cuda(dev)
-    _build.check_arg(num.is_contiguous() and den.is_contiguous(),
-                     "refill inputs must be contiguous")
-    out = torch.empty((c, out_h, out_w), dtype=DEFAULT_FLOAT, device=dev)
+    return _launch_refill(num, den, out_h, out_w, B, B if tiles else w, -1)
+
+
+def refill_image(num, den, refill_border):
+    """K7 on the whole accumulators: the scan, chunked, vmapped and sharded
+    forms' refill and divide, ``normalize_accum(num, den,
+    refill_border=refill_border)`` (its plain twin) bit for bit.
+    ``num``/``den``: ``(c, H, W)`` float32 on one device, rows contiguous,
+    planes any equal distance apart (a view of every other plane, as the
+    sharded pipeline's, takes no copy); returns the ``(c, H, W)`` image, a
+    new tensor. The kernel refills only within ``refill_border`` of an
+    edge, where :func:`~.accumfix.strip_width` says the strips are distinct,
+    and everywhere otherwise."""
+    B = int(refill_border)
+    dev = num.device
+    c, h, w = _check_accumulators(num, den)
+    _build.check_arg(B >= 0, f"refill_border {B} < 0")
+    if dev.type == "cpu":
+        return normalize_accum(num, den, refill_border=B)
+    border = strip_width((h, w), B)
+    return _launch_refill(num, den, h, w, h, w, -1 if border is None else border)
+
+
+def _check_accumulators(num, den):
+    dev = num.device
+    _build.check_f32("num", num, 3, dev)
+    _build.check_f32("den", den, 3, dev)
+    _build.check_arg(num.shape == den.shape, f"num {tuple(num.shape)}, den "
+                     f"{tuple(den.shape)}")
+    return tuple(num.shape)
+
+
+def _launch_refill(num, den, out_h, out_w, gh, gw, border):
+    """One K7 launch: groups of ``gh x gw``, the refill kept within
+    ``border`` of an edge (everywhere if negative); the ``(c, out_h,
+    out_w)`` image, a new tensor."""
+    _build.require_cuda(num.device)
+    c, h, w = num.shape
+    plane = max(num.stride(0), h * w)
+    _build.check_arg(num.stride() == den.stride() and num.stride(2) == 1
+                     and num.stride(1) == w and (c == 1 or num.stride(0) >= h * w)
+                     and plane < 2**31,
+                     f"refill inputs need contiguous rows, the same strides and planes "
+                     f"under 2^31 values apart: {num.stride()}, {den.stride()}")
+    out = torch.empty((c, out_h, out_w), dtype=DEFAULT_FLOAT, device=num.device)
     code = _build.library().hmsr_refill(
-        _build.ptr(num), _build.ptr(den), _build.ptr(out), c, h, w, B, int(bool(tiles)),
-        out_h, out_w, STARVED_DEN, EPSILON_DIV, _build.stream_of(num))
+        _build.ptr(num), _build.ptr(den), _build.ptr(out), c, h, w, plane, gh, gw, out_h,
+        out_w, border, STARVED_DEN, EPSILON_DIV, _build.stream_of(num))
     _build.check(code, "hmsr_refill")
     refill_groups.launches += 1
     return out

@@ -23,7 +23,8 @@ The reference init runs on every rank. After the reference merge into its
 band, the bands are assembled over the space group, one ``broadcast`` per
 band and accumulator plane from its owner (both gloo and NCCL take it on
 CUDA tensors), and the whole accumulators are normalized with the
-full-image refill: every rank returns the same image.
+border-strip refill, one launch of K7 on the assembled planes as they lie
+(no copy): every rank returns the same image.
 
 One process per rank splits the host's work (the port is host-bound: it
 launches thousands of small kernels per burst) as it splits the device's. The backend

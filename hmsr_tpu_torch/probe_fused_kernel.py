@@ -56,36 +56,58 @@ def inputs(device, seed=12):
             estimate_kernels(scenes[0], config).contiguous())
 
 
-def build(variants, src):
-    """``{name: (path of the library, ptxas report of merge_fused_kernel<2,0>)}``
-    of every variant, all ``nvcc`` runs started together."""
-    os.makedirs(OUT_DIR, exist_ok=True)
+def build(variants, src, source="merge_fused.cu", kernel="merge_fused_kernel<2,0>",
+          out_dir=OUT_DIR):
+    """``{name: (path of the library, ptxas report of kernel)}`` of every
+    variant: ``source`` from ``src`` compiled alone with the library's flags
+    and the variant's into ``out_dir``, all ``nvcc`` runs started
+    together."""
+    os.makedirs(out_dir, exist_ok=True)
     nvcc, procs = _build._nvcc(), {}
     for i, (name, flags) in enumerate(variants.items()):
-        so = os.path.join(OUT_DIR, f"variant{i}.so")
+        so = os.path.join(out_dir, f"variant{i}.so")
         cmd = [nvcc, *_build.NVCC_FLAGS, *flags.split(), "-shared", "-o", so,
-               os.path.join(src, "merge_fused.cu")]
+               os.path.join(src, source)]
         procs[name] = (so, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.PIPE, text=True))
     out = {}
     for name, (so, cmd, proc) in procs.items():
         stdout, stderr = proc.communicate()
         _build._check_run(cmd, proc.returncode, stdout, stderr)
-        out[name] = (so, _build.ptxas_report(stdout + stderr).get(
-            "merge_fused_kernel<2,0>", {}))
+        out[name] = (so, _build.ptxas_report(stdout + stderr).get(kernel, {}))
     return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def parser(doc, example):
+    """The probes' arguments: ``--src``, ``--variant`` and ``--out``."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--src", default=_build.CSRC)
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=FLAGS, e.g. 'two blocks=-DMIN_BLOCKS=2'")
+                    help=f"NAME=FLAGS, e.g. '{example}'")
     ap.add_argument("--out", default=None, help="also write the lines here")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def variants_of(args, tool):
+    """``{name: flags}`` of ``--variant`` (the source as it is without any);
+    raises ``SystemExit`` without a CUDA card."""
     if not torch.cuda.is_available():
-        raise SystemExit("probe_fused_kernel needs a CUDA card")
-    variants = dict(v.split("=", 1) for v in args.variant) or {"as it is": ""}
+        raise SystemExit(f"{tool} needs a CUDA card")
+    return dict(v.split("=", 1) for v in args.variant) or {"as it is": ""}
+
+
+def report(lines, out):
+    """Print ``lines``, and write them to ``out`` too when it is given."""
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    print("\n".join(lines), flush=True)
+
+
+def main(argv=None):
+    args = parser(__doc__, "two blocks=-DMIN_BLOCKS=2").parse_args(argv)
+    variants = variants_of(args, "probe_fused_kernel")
     smi, dev = card(), "cuda"
     comp, flows, covs, rob, ref, ref_covs = inputs(dev)
     n_ref, d_ref = cuda_merge.merge_fused_accumulate(comp, flows, covs, rob, ref,
@@ -113,11 +135,7 @@ def main(argv=None):
                      f"spills {ptx.get('spill_stores')}/{ptx.get('spill_loads')} B; "
                      f"max|d| against the library's K6 num {d[0]:.3e} den {d[1]:.3e} "
                      f"[{smi}]")
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
-    print("\n".join(lines), flush=True)
+    report(lines, args.out)
 
 
 if __name__ == "__main__":

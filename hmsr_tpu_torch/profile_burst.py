@@ -9,7 +9,8 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
 ``--pipeline``: scan, chunked with chunks of 5, fused (K6 and K7's refill
-per slab) or vmapped; ``--mode grey``:
+per slab) or vmapped; the others than fused end in K7's border-strip
+refill, the ``refill_image`` stage; ``--mode grey``:
 ``bench.py``'s grey cell, the frames taken as grey images; ``--scale``: the
 output scale, with ``bench.py``'s mutations of its x3 and x1 cells at 3
 and 1, :data:`SCALE_CELLS`) once to warm up,
@@ -60,7 +61,7 @@ from .synthetic import (BENCH_CELLS, CFA_RGGB, WB, affine_curves, burst_config,
 STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
           "compute_robustness", "estimate_kernels", "merge_tiled", "merge",
           "_merge_burst_chunked", "merge_burst_fused", "merge_ref_tiled",
-          "normalize_accum")
+          "refill_image")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
 
 #: scales whose ``bench.py`` cell mutates more than the scale
@@ -75,7 +76,8 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.
                 "merge_fused_kernel": cuda_merge.merge_fused_accumulate,
                 "refill_kernel": cuda_merge.refill_groups}
 #: stage -> (hand-written kernel, its launches per burst from that stage);
-#: None stands for "every launch of the burst".
+#: None stands for "every launch of the burst". A stage that the profiled
+#: run did not enter takes none.
 LAUNCHED_BY = {
     "align": (("bm_kernel", None), ("ica_steps_kernel", None), ("ica_fused_kernel", None)),
     "compute_robustness": (("warp_kernel", "n_cmp"),),
@@ -83,6 +85,7 @@ LAUNCHED_BY = {
     "merge_tiled": (("merge_kernel", None),),
     "_merge_burst_chunked": (("merge_burst_kernel", None),),
     "merge_burst_fused": (("merge_fused_kernel", None), ("refill_kernel", None)),
+    "refill_image": (("refill_kernel", None),),
 }
 
 
@@ -204,6 +207,8 @@ def main(argv=None):
         raise RuntimeError(f"hand-written kernels launched {wrapper_launches} but without "
                            f"device time in the profile: {missing}")
     for stage, launched in LAUNCHED_BY.items():
+        if stage not in stages:
+            continue
         for kname, n_from in launched:
             ms, n = ours[kname]
             share = 1.0 if n_from is None else \

@@ -1,7 +1,9 @@
 """The ``bench.py`` headline workload, made on the device from a seed: a
-synthetic Bayer burst, its analytic noise curves and its configuration.
+synthetic Bayer burst, its analytic noise curves and its configuration;
+and accumulators with starved pixels for K7 (the refill).
 
-Used by ``chip_smoke.py`` and :mod:`hmsr_tpu_torch.profile_burst`.
+Used by ``chip_smoke.py``, :mod:`hmsr_tpu_torch.profile_burst` and
+:mod:`hmsr_tpu_torch.probe_refill_kernel`.
 """
 
 import math
@@ -98,3 +100,47 @@ def make_burst(h, w, n_frames, seed, device, alpha=ALPHA, beta=BETA,
             (h, w), generator=g, device=device)
         frames[k] = torch.clamp(shifted + noise, 0, 1)
     return frames
+
+
+def starved_accumulators(gen, shape, device):
+    """num/den of a fused merge's kind at ``shape``: den in (0, 20), 7 % of
+    the values and every 3x3 block of a sparse grid starved (below
+    ``STARVED_DEN``), num = den x an image value in [0, 1]. The stress
+    input: every piece of K7 holds starved values."""
+    den = torch.rand(shape, generator=gen, device=device) * 20.0
+    den[torch.rand(shape, generator=gen, device=device) < 0.07] = 0.0
+    blocks = torch.rand((shape[0], shape[1] // 3, shape[2] // 3), generator=gen,
+                        device=device) < 0.02
+    blocks = blocks.repeat_interleave(3, 1).repeat_interleave(3, 2)
+    den[:, :blocks.shape[1], :blocks.shape[2]][blocks] = 5e-5
+    num = den * torch.rand(shape, generator=gen, device=device)
+    return num.contiguous(), den.contiguous()
+
+
+def edge_starved_accumulators(gen, shape, device, strided=False):
+    """num/den of a scan merge's kind at ``(c, H, W)``: den in (0, 20);
+    starved values (0 or 5e-5) at 10 % of the pixels at depths 0-3 and
+    28-44 from the nearest edge (both sides of the 32-px border and of the
+    strips' 8-px margin) and 0.1 % elsewhere, 5x5 blocks of them on a sparse
+    grid in those depths (their centres need both passes), and NaN at 1e-5
+    of the dens; num = den x [0, 1). ``strided``: num and den are the first
+    and last c planes of a (2c, H + 16, W) buffer, cut to H rows."""
+    c, h, w = shape
+    ys, xs = torch.arange(h, device=device), torch.arange(w, device=device)
+    depth = torch.minimum(torch.minimum(ys, h - 1 - ys)[:, None],
+                          torch.minimum(xs, w - 1 - xs)[None, :])
+    band = (depth <= 3) | ((depth >= 28) & (depth <= 44))
+    p = torch.where(band, 0.1, 0.001)
+    den = torch.rand(shape, generator=gen, device=device) * 20.0
+    low = torch.where(torch.rand(shape, generator=gen, device=device) < 0.5, 0.0, 5e-5)
+    starved = torch.rand(shape, generator=gen, device=device) < p
+    blocks = torch.rand((c, h // 5 + 1, w // 5 + 1), generator=gen, device=device) < 0.05
+    blocks = blocks.repeat_interleave(5, 1).repeat_interleave(5, 2)[:, :h, :w]
+    den = torch.where(starved | (blocks & band), low, den)
+    den[torch.rand(shape, generator=gen, device=device) < 1e-5] = float("nan")
+    num = torch.nan_to_num(den) * torch.rand(shape, generator=gen, device=device)
+    if not strided:
+        return num, den
+    buf = torch.zeros((2 * c, h + 16, w), device=device)
+    buf[:c, :h], buf[c:, :h] = num, den
+    return buf[:c, :h], buf[c:, :h]

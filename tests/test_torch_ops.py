@@ -154,6 +154,28 @@ def test_normalize_accum(border):
     assert max_abs(got, want) <= TOL
 
 
+def test_normalize_accum_deep_starved():
+    """Starved pixels at depths 28-44 from every edge: on both sides of the
+    32-px strips' edge and of their 8-px margin. The port's border refill
+    (``normalize_accum`` and K7's wrapper, which takes it on the CPU)
+    against the JAX package's."""
+    from hmsr_tpu_torch.ops import cuda_merge
+    rng = np.random.RandomState(12)
+    num = rng.rand(3, 128, 144).astype(np.float32)
+    den = rng.uniform(0.5, 1.5, (3, 128, 144)).astype(np.float32)
+    for d in range(28, 45, 3):
+        den[:, d:d + 2, 50:53] = 1e-7
+        den[0, -1 - d, 90:92] = 0.0
+        den[1, 60:63, d:d + 2] = 1e-9
+        den[2, 70:72, -1 - d] = 0.0
+        den[:, d, d] = 0.0
+    want = j_accumfix.normalize_accum(jnp.asarray(num), jnp.asarray(den),
+                                      refill_border=32)
+    for got in (accumfix.normalize_accum(t(num), t(den), refill_border=32),
+                cuda_merge.refill_image(t(num), t(den), 32)):
+        assert max_abs(got, want) <= TOL
+
+
 def test_from_numpy_converts_state():
     """JAX per-burst state, turned into numpy, becomes the port's types."""
     import jax
