@@ -11,10 +11,11 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the eight kernels (K1 block matching, K2 ICA Gauss-Newton steps,
+1. build the ten kernels (K1 block matching, K2 ICA Gauss-Newton steps,
    K3 fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge, K6 the
-   fused form's burst-and-reference merge, K7 its refill and divide) and
-   the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
+   fused form's burst-and-reference merge, K7 its refill and divide, K8 the
+   raw burst's normalization, K9 RAW10/RAW12 unpacking) and the probes P1
+   and P2 from ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
    instantiation of a templated kernel: K5 and K5' have one per variant,
@@ -22,7 +23,7 @@ and power limit:
    isotropic kernel), the launch layouts that the library computes for K1
    per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c) and K5/K5' per
    (Ts, scale, variant), and the static SASS instructions of every
-   instantiation of K1-K7 (``cuobjdump -sass`` of the library), in all
+   instantiation of K1-K9 (``cuobjdump -sass`` of the library), in all
    and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
@@ -108,7 +109,8 @@ and power limit:
    entry (:mod:`hmsr_tpu_torch.graft_entry`) on the card against the CPU;
    (e) ``unprocess_isp`` on a 3000x4000x3 image on the card against the
    CPU with the same generators (1e-6); (f) RAW10 and RAW12 unpacking of
-   12 MP of random bytes on the card, bit for bit against the CPU.
+   12 MP of random bytes through ``io.unpack`` on the card (K9, one launch
+   per call), bit for bit against the CPU.
 11. the multi-device path on ``torch.distributed`` (:func:`phase_sharded`),
    every rank on this one card: (a) K5 into 2, 3 and 4 bands of whole tile
    rows (the banded branch, ``row_offset``) at 3000x4000 x2, Ts=16, 32 and
@@ -158,11 +160,28 @@ and power limit:
    against phase 4's scan image; (d) the fused form's PSNRs on the card,
    each within 0.05 dB of ``ACCURACY_r05.json`` (the JAX package's fused
    record).
+13. raw ingestion (:func:`phase_normalize` and after): (a) K8
+   (``csrc/ingest.cu``) against its plain version on the card, bit for
+   bit, on 20x3000x4000 uint16 over 0-65535 from a seeded generator in the
+   four CFA layouts at white levels 1023, 4095 and 65535 (blacks above many
+   values), on 2x3001x4003, 3x7x9 and bases 2, 6 and 8 bytes off 16-byte
+   alignment; the main case timed beside its plain version and bound, and
+   the stack's uint16 upload beside the float32 upload it replaces; (b) K9
+   against its plain version at 12 MP, RAW10 and RAW12, bit for bit,
+   timed; (c) the phase 4 burst quantised to 10 bits (black 64, white
+   balance 1.9/1.0/1.4), written as 20 empty ``.dng`` placeholders under
+   ``build/`` and read through ``process(<folder>)`` in the default
+   configuration (the fused form) with rawpy and exifread stood in
+   (:class:`StandInRawpy`, :class:`StandInExifread` in ``sys.modules``,
+   removed after): K8 1, the fused form's launches, the peak under
+   ``MAX_PEAK_GIB["fused"]``, the image equal to ``process_arrays`` on the
+   frames normalized by K8's plain version on the CPU (phase 3's bounds
+   gate it); the load's split.
 
 The line before the last is a JSON object with one entry per kernel (K5
 and K5' with their four variants under ``variants``, K5 with its banded
 branch under ``banded``, K6 and K7 with their cases under ``cases``, K7's
-of both layouts); the
+of both layouts, K8 with its uploads, K9 with RAW12 beside RAW10); the
 last line is
 ``{"ok": true, "device": {...}}``. The script imports neither JAX nor the
 JAX package ``hmsr_tpu``.
@@ -189,6 +208,8 @@ from hmsr_tpu_torch import configs, graft_entry, probe_cta_cost, score_accuracy
 from hmsr_tpu_torch.finishing.denoise import (frame_count_denoising_gauss,
                                               frame_count_denoising_median)
 from hmsr_tpu_torch.finishing.unprocess import unprocess_isp
+from hmsr_tpu_torch.io import native_loader
+from hmsr_tpu_torch.io.burst import load_burst
 from hmsr_tpu_torch.io.unpack import unpack_raw10, unpack_raw12
 from hmsr_tpu_torch.measure import bound, card, timed
 from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_sizes,
@@ -198,7 +219,8 @@ from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.pipeline import (_use_tiled, accum_shape, make_pipeline,
                                              pipeline_form, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
-from hmsr_tpu_torch.ops import _build, cuda_ica, cuda_merge, cuda_probes, cuda_warp
+from hmsr_tpu_torch.ops import (_build, cuda_ica, cuda_ingest, cuda_merge, cuda_probes,
+                                 cuda_warp)
 from hmsr_tpu_torch.ops.accumfix import REFILL_BORDER, STARVED_DEN, normalize_accum
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
@@ -229,6 +251,12 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K7": ("K7 refill and divide (per slab or tile in the fused form, the border strips "
            "of the whole accumulators in the others)", cuda_merge.refill_groups,
            "hmsr_tpu_torch/csrc/refill.cu", "hmsr_tpu/models/merge_slab.py:383"),
+    # replace host C++ of the JAX package's loader (native/burst_loader.cpp)
+    "K8": ("K8 raw burst normalization (black level, white level and white balance per "
+           "CFA phase)", cuda_ingest.normalize_bayer, "hmsr_tpu_torch/csrc/ingest.cu",
+           "hmsr_tpu/io/native_loader.py:59"),
+    "K9": ("K9 MIPI RAW10/RAW12 unpacking", cuda_ingest.unpack_raw,
+           "hmsr_tpu_torch/csrc/ingest.cu", "hmsr_tpu/io/native_loader.py:98"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
 #: counts stay out of the path's counts)
@@ -240,14 +268,15 @@ PROBES = {
 }
 MAIN_TS = 16            # the bright main path's tile size
 CHUNK = 5               # tpu.merge_chunk of the chunked path
-#: launches per bright 20-frame burst, scan and chunked (chunks of 5)
+#: launches per bright 20-frame burst, scan and chunked (chunks of 5), from
+#: frames already loaded (a DNG folder's load adds one K8)
 BRIGHT_LAUNCHES = {
     "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0,
-             "K7": 1},
+             "K7": 1, "K8": 0, "K9": 0},
     "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0,
-                "K7": 1},
+                "K7": 1, "K8": 0, "K9": 0},
     "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1,
-              "K7": 1}}
+              "K7": 1, "K8": 0, "K9": 0}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB); fused, also per
@@ -261,6 +290,7 @@ DEFAULT_FORM = "fused"
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
 FUSED_KERNEL = "merge_fused_kernel"     # K6, merge_fused_kernel<G,ISO>
 REFILL_KERNEL = "refill_kernel"         # K7
+INGEST_KERNELS = ("normalize_kernel", "unpack_kernel")   # K8, K9 (unpack_kernel<BITS>)
 #: the variants of K5 and K5' (grey, iso), the main path's first
 MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
                   "bayer-iso": (False, True), "grey-iso": (True, True)}
@@ -361,7 +391,7 @@ def phase_build(raw_shape):
             f"(4 pixels each), window {g['window']}x{g['window']}, "
             f"{g['smem_bytes']} B dynamic shared memory")
     bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
-             *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL}
+             *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL, *INGEST_KERNELS}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -898,8 +928,9 @@ def expected_launches(ref, config, n_cmp):
     (chunked), or one K6 per burst (fused), and none of them at a
     fractional scale (the gather merge, plain torch; fused runs the scan
     form there); one K7 per burst in every form (per slab or tile in the
-    fused form, the border strips otherwise). With the decimating grey the
-    levels are those of the half-size grey image."""
+    fused form, the border strips otherwise); no K8 or K9 (the burst is
+    loaded). With the decimating grey the levels are those of the half-size
+    grey image."""
     state = init_alignment(to_grey(ref, config), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
@@ -916,7 +947,7 @@ def expected_launches(ref, config, n_cmp):
     return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
             "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
             "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
-            "K6": 1 if form == "fused" else 0, "K7": 1}
+            "K6": 1 if form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -1395,7 +1426,7 @@ RUN_CLI = (
     "t0 = time.perf_counter()\n"
     "import json, sys, torch\n"
     "from hmsr_tpu_torch.run_handheld import main\n"
-    "from hmsr_tpu_torch.ops import cuda_ica, cuda_merge, cuda_warp\n"
+    "from hmsr_tpu_torch.ops import cuda_ica, cuda_ingest, cuda_merge, cuda_warp\n"
     "t1 = time.perf_counter()\n"
     "main()\n"
     "print('TIMES', t1 - t0, time.perf_counter() - t1)\n"
@@ -1406,7 +1437,8 @@ RUN_CLI = (
     "    'K4': cuda_warp.upscale_warp.launches, 'K5': cuda_merge.merge_accumulate.launches,\n"
     "    \"K5'\": cuda_merge.merge_burst_accumulate.launches,\n"
     "    'K6': cuda_merge.merge_fused_accumulate.launches,\n"
-    "    'K7': cuda_merge.refill_groups.launches}))\n"
+    "    'K7': cuda_merge.refill_groups.launches,\n"
+    "    'K8': cuda_ingest.normalize_bayer.launches, 'K9': cuda_ingest.unpack_raw.launches}))\n"
     "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
 #: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
 #: takes the device chain)
@@ -1592,30 +1624,39 @@ def phase_unprocess(device, shape=(3000, 4000), seed=0):
 
 
 def phase_unpack(device, n_pixels=12_000_000, seed=0):
-    """Phase 10 (f): RAW10 and RAW12 unpacking on the card, bit for bit
-    against the CPU."""
+    """Phase 10 (f): RAW10 and RAW12 unpacking through the user's entry
+    (``io.unpack``) on the card, K9, bit for bit against the CPU (its plain
+    version). Returns the seconds per format and K9's launches in the
+    entry's first call of each format (counts reset just before)."""
     g = torch.Generator()
     g.manual_seed(seed)
-    res = {}
+    res, launches = {}, 0
     for name, fn, per, nbytes_ in (("RAW10", unpack_raw10, 4, 5),
                                    ("RAW12", unpack_raw12, 2, 3)):
         packed = torch.randint(0, 256, (n_pixels // per * nbytes_,), generator=g,
                                dtype=torch.uint8)
         on_card = packed.to(device)
-        for _ in range(2):              # the second call timed
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = fn(on_card, n_pixels)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_counts()
+        got = fn(on_card, n_pixels)
+        torch.cuda.synchronize()
+        launches += cuda_ingest.unpack_raw.launches
+        if cuda_ingest.unpack_raw.launches != 1:
+            raise AssertionError(f"phase 10 unpack {name}: K9 launched "
+                                 f"{cuda_ingest.unpack_raw.launches} times, expected 1")
+        t0 = time.perf_counter()             # the second call timed
+        got = fn(on_card, n_pixels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
         want = fn(packed, n_pixels)
         same = got.dtype == torch.uint16 and torch.equal(got.cpu().to(torch.int32),
                                                          want.to(torch.int32))
-        log(f"phase 10 (f) unpack {name}, {n_pixels} pixels on the card: {dt:.4f} s "
+        log(f"phase 10 (f) unpack {name}, {n_pixels} pixels on the card (K9): {dt:.4f} s "
             f"(second call, host clock); equal to the CPU bit for bit: {same} [{CARD}]")
         if not same:
             raise AssertionError(f"phase 10 unpack {name}: the card and the CPU differ")
         res[name] = dt
+    res["launches"] = launches
     return res
 
 
@@ -2439,6 +2480,309 @@ def phase_fused_accuracy(device):
     return {key: got for key, got, _ in rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: raw ingestion
+# ---------------------------------------------------------------------------
+
+#: the CFA layouts of phase 13 (a), as the loaders leave them (greens 1)
+CFA_LAYOUTS = {"RGGB": (0, 1, 1, 2), "BGGR": (2, 1, 1, 0), "GRBG": (1, 0, 2, 1),
+               "GBRG": (1, 2, 0, 1)}
+INGEST_WHITES = (1023, 4095, 65535)
+INGEST_WB = (1.9, 1.0, 1.4, 1.0)
+#: the DNG burst of phase 13 (c): 10 bits over a black level of 64
+DNG_BLACK, DNG_WHITE = 64, 1023
+
+
+def random_u16(gen, shape, device):
+    """uint16 over the whole range, 0 to 65535, from ``gen``."""
+    return torch.randint(0, 65536, shape, generator=gen, device=device,
+                         dtype=torch.int32).to(torch.uint16)
+
+
+def same_bits(a, b):
+    """Equal bit for bit (float32 as int32, uint16 as int16)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(view),
+                                                                      b.view(view))
+
+
+def check_normalize(frames, layout, white, what):
+    """K8 on ``frames`` against its plain version on the card, bit for bit,
+    blacks above many of the values; returns (args, max|d|)."""
+    blacks = [white // 16, white // 20, white // 12, white // 20]
+    args = native_loader.normalization(CFA_LAYOUTS[layout], blacks, white, INGEST_WB)
+    out_k = cuda_ingest.normalize_bayer(frames, *args)
+    out_p = cuda_ingest.normalize_bayer_plain(frames, *args)
+    torch.cuda.synchronize()
+    if not same_bits(out_k, out_p):
+        raise AssertionError(f"phase 13 K8 {what} {layout} white {white}: max|d| "
+                             f"{float((out_k - out_p).abs().max()):.3e}, not bit for bit")
+    return args, float((out_k - out_p).abs().max())
+
+
+def time_upload(host, device, n=2):
+    """Seconds of the fastest of ``n`` host-to-card copies of the numpy
+    array ``host`` (pageable memory, as the loader's), synchronised."""
+    best = float("inf")
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.from_numpy(host).to(device)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def phase_normalize(device, shape=(20, 3000, 4000), seed=13):
+    """Phase 13 (a): K8 against its plain version on the card, bit for bit:
+    the 20x3000x4000 stack of random uint16 (0 to 65535) in the four CFA
+    layouts at white levels 1023, 4095 and 65535, odd shapes (3001x4003,
+    7x9) and bases 2, 6 and 8 bytes off 16-byte alignment; the main case
+    (RGGB, 10 bits) timed beside its plain version, its bound and the
+    uint16 upload beside the float32 upload it replaces. Returns the row of
+    the ``kernels`` line."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    frames = random_u16(g, shape, device)
+    errs = [check_normalize(frames, layout, white, "20x3000x4000")[1]
+            for layout in CFA_LAYOUTS for white in INGEST_WHITES]
+    flat = frames.reshape(-1)
+    for what, off, sub in (("2x3001x4003", 0, (2, 3001, 4003)), ("3x7x9", 0, (3, 7, 9)),
+                           ("4x3000x4000 base +2 B", 1, (4, 3000, 4000)),
+                           ("4x3000x4000 base +6 B", 3, (4, 3000, 4000)),
+                           ("4x3000x4000 base +8 B", 4, (4, 3000, 4000))):
+        view = flat[off:off + sub[0] * sub[1] * sub[2]].view(sub)
+        for layout in ("RGGB", "GBRG"):
+            errs.append(check_normalize(view, layout, 4095, what)[1])
+    log(f"phase 13 (a) K8 bit for bit against its plain version: 20x3000x4000 in "
+        f"{len(CFA_LAYOUTS)} CFA layouts x white levels {INGEST_WHITES}, 2x3001x4003, "
+        f"3x7x9 and bases 2, 6 and 8 bytes off alignment ({len(errs)} cases, max|d| "
+        f"{max(errs)})")
+    args = native_loader.normalization(CFA_LAYOUTS["RGGB"], [DNG_BLACK] * 4, DNG_WHITE,
+                                       INGEST_WB)
+    tk = timed(lambda: cuda_ingest.normalize_bayer(frames, *args))
+    out_p, ms_p = plain_ms(lambda: cuda_ingest.normalize_bayer_plain(frames, *args))
+    bnd = bound(nbytes(frames, out_p), 2 * frames.numel())
+    host_u16 = frames.cpu().numpy()
+    up_u16, s_u16 = time_upload(host_u16, device)
+    if not same_bits(up_u16, frames):
+        raise AssertionError("phase 13: the uint16 upload is not a plain copy")
+    del up_u16
+    host_f32 = out_p.cpu().numpy()
+    del out_p
+    up_f32, s_f32 = time_upload(host_f32, device)
+    del up_f32, host_f32, host_u16
+    log(f"phase 13 (a) K8 {shape[0]}x{shape[1]}x{shape[2]} RGGB 10-bit: {time_text(tk)}; "
+        f"plain {ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); upload of the uint16 "
+        f"stack {1e3 * s_u16:.2f} ms against {1e3 * s_f32:.2f} ms for the float32 it "
+        f"replaces [{CARD}]")
+    return dict(err=max(errs), ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p,
+                bound_ms=bnd[0], bound_by=bnd[1], cases=len(errs),
+                upload_u16_ms=1e3 * s_u16, upload_f32_ms=1e3 * s_f32)
+
+
+def phase_unpack_kernel(device, n_pixels=12_000_000, seed=14):
+    """Phase 13 (b): K9 against its plain version on the card at 12 MP of
+    random bytes, RAW10 and RAW12, bit for bit, timed. Returns one row per
+    format."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    rows = {}
+    for bits in sorted(cuda_ingest.RAW_FORMATS):
+        per, nb = cuda_ingest.RAW_FORMATS[bits]
+        packed = torch.randint(0, 256, (n_pixels // per * nb + 3,), generator=g,
+                               device=device, dtype=torch.int32).to(torch.uint8)
+        out_k = cuda_ingest.unpack_raw(packed, n_pixels, bits)
+        cuda_ingest.unpack_raw_plain(packed, n_pixels, bits)     # warm-up
+        out_p, ms_p = plain_ms(lambda: cuda_ingest.unpack_raw_plain(packed, n_pixels,
+                                                                    bits))
+        if not same_bits(out_k, out_p):
+            raise AssertionError(f"phase 13 K9 RAW{bits}: not bit for bit")
+        tk = timed(lambda: cuda_ingest.unpack_raw(packed, n_pixels, bits), n=20)
+        bnd = bound(n_pixels // per * nb + nbytes(out_k), 0)
+        log(f"phase 13 (b) K9 RAW{bits}, {n_pixels} pixels: bit for bit; {time_text(tk)}; "
+            f"plain {ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
+        rows[bits] = dict(err=0.0, ms=tk.ms, host_us=tk.host_us, plain_ms=ms_p,
+                          bound_ms=bnd[0], bound_by=bnd[1])
+    return rows
+
+
+class StandInRaw:
+    """The surface of ``rawpy.RawPy`` that ``load_dng_burst`` reads: one
+    frame of the phase 13 (c) burst, 10 bits over a black level of 64,
+    RGGB with rawpy's 3 for the second green."""
+
+    def __init__(self, image):
+        self.raw_image = image
+        self.white_level = DNG_WHITE
+        self.black_level_per_channel = [DNG_BLACK] * 4
+        self.camera_whitebalance = list(INGEST_WB)
+        self.raw_pattern = np.array([[0, 1], [3, 2]])
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class StandInRawpy:
+    """``rawpy`` for phase 13 (c): ``imread`` hands out the frame of the
+    file's name; nothing is decoded."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def imread(self, path):
+        return StandInRaw(self.images[os.path.basename(path)])
+
+
+class StandInTag:
+    def __init__(self, values):
+        self.values = values
+
+    def __str__(self):
+        return str(self.values)
+
+
+class StandInExifread:
+    """``exifread`` for phase 13 (c): ISO 100, orientation 1."""
+
+    @staticmethod
+    def process_file(f):
+        return {"EXIF ISOSpeedRatings": StandInTag(100),
+                "Image Orientation": StandInTag([1])}
+
+
+@contextlib.contextmanager
+def stand_in_decoder(images):
+    """``rawpy`` and ``exifread`` stood in by the classes above in
+    ``sys.modules`` (the card's machine has neither), removed after."""
+    saved = {m: sys.modules.get(m) for m in ("rawpy", "exifread")}
+    sys.modules["rawpy"] = StandInRawpy(images)
+    sys.modules["exifread"] = StandInExifread()
+    try:
+        yield
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def frame_uploads(raw, device, n=2):
+    """Seconds of the fastest of ``n`` uploads of the uint16 stack ``raw``
+    frame by frame into one device stack, as ``load_dng_burst`` does."""
+    stack = torch.empty(raw.shape, dtype=torch.uint16, device=device)
+    best = float("inf")
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(raw)):
+            stack[i].copy_(torch.from_numpy(raw[i]))
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def phase_dng(device, k8_ms):
+    """Phase 13 (c): the phase 4 burst quantised to 10-bit uint16 (black
+    level 64, white balance :data:`INGEST_WB`), written as 20 empty ``.dng``
+    placeholders under ``build/`` and read through ``process(<folder>)`` on
+    the card in the default configuration (the fused form), rawpy and
+    exifread stood in: K8 launched once, the pipeline's launches those of
+    the fused form, the peak under its limit, the image that of
+    ``process_arrays`` on the frames normalized by K8's plain version on
+    the CPU and uploaded. The load's split, timed apart: the frames'
+    uploads (:func:`frame_uploads`), K8 (``k8_ms``, phase 13 (a) at this
+    shape); the decode is stood in and takes no time."""
+    frames = make_burst(3000, 4000, 20, 0, device)
+    n_frames, h, w = frames.shape
+    raw = torch.round(frames * (DNG_WHITE - DNG_BLACK) + DNG_BLACK).clamp_(
+        0, DNG_WHITE).to(torch.int16).cpu().numpy().view(np.uint16)
+    del frames
+    upload_ms = 1e3 * frame_uploads(raw, device)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase13_", dir=os.path.join(ROOT, "build"))
+    images = {f"{i:02d}.dng": raw[i] for i in range(n_frames)}
+    try:
+        for name in images:
+            open(os.path.join(tmp, name), "wb").close()
+        with stand_in_decoder(images):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            burst = load_burst(tmp, device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if not (isinstance(burst.comp_raws, torch.Tensor)
+                    and burst.comp_raws.device.type == torch.device(device).type):
+                raise AssertionError("phase 13: the DNG load left the frames off the card")
+            cfa, wb = burst.cfa, burst.white_balance
+            del burst
+            config = process_config("auto")
+            expect = dict(BRIGHT_LAUNCHES[DEFAULT_FORM], K8=1)
+            image, dt, got, peak = run_once(
+                lambda: process(tmp, config, device=device), lambda: expect,
+                "phase 13 process(DNG folder)", (2 * h, 2 * w, 3))
+    finally:
+        shutil.rmtree(tmp)
+    form = pipeline_form(config)
+    if form != DEFAULT_FORM or peak > MAX_PEAK_GIB[DEFAULT_FORM] * 2**30:
+        raise AssertionError(f"phase 13 process(DNG folder): form {form}, peak memory "
+                             f"{peak / 2**30:.3f} GiB (limit {MAX_PEAK_GIB[DEFAULT_FORM]})")
+    log(f"phase 13 (c) process(<folder of {n_frames} .dng>), decoder stood in (rawpy and "
+        f"exifread replaced in sys.modules; the card's machine has neither): "
+        f"{dt:.4f} s, {form} form, Ts={config.block_matching.tuning.tile_size}; peak "
+        f"memory {peak / 2**30:.3f} GiB; launches {got}; the load alone {1e3 * load_s:.2f} "
+        f"ms; timed apart: the frames' uint16 uploads {upload_ms:.2f} ms, K8 {k8_ms:.4f} "
+        f"ms, the decode none (stood in) [{CARD}]")
+    args = native_loader.normalization(cfa, [DNG_BLACK] * 4, DNG_WHITE, wb)
+    plain = cuda_ingest.normalize_bayer_plain(torch.from_numpy(raw), *args).to(device)
+    want, _ = process_arrays(plain[0], plain[1:], process_config("auto"), cfa=cfa,
+                             white_balance=wb, device=device)
+    del plain
+    d = (image - want).abs()[8:-8, 8:-8]
+    equal = torch.equal(image, want)
+    log(f"phase 13 (c) against process_arrays on the frames normalized by K8's plain "
+        f"version on the CPU: equal bit for bit {equal}; interior mean|d| "
+        f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e}")
+    if not (float(d.mean()) < 1e-4 and float(d.max()) < 1e-3):
+        raise AssertionError(f"phase 13 process(DNG folder) against process_arrays: "
+                             f"mean|d| {float(d.mean())}, max|d| {float(d.max())}")
+    return dict(launches=got, process_s=dt, peak_bytes=peak, load_ms=1e3 * load_s,
+                upload_ms=upload_ms, equal=equal)
+
+
+def ingest_entries(norm, unpack, dng, k9_launches, bench_launches, ptxas):
+    """K8's and K9's entries of the ``kernels`` line: K8's main case (20x3000x4000,
+    phase 13 (a)) and its launches in ``process(<DNG folder>)`` (phase 13
+    (c)); K9 at 12 MP (RAW10, RAW12 beside it) and its launches in the
+    user's unpacking entry (phase 10 (f), one call per format)."""
+    out = []
+    for key, row, launches, extra in (
+            ("K8", norm, dng["launches"]["K8"],
+             {"launches_in": "process(<DNG folder>), 20x3000x4000 (phase 13 (c))",
+              "launches_bench": bench_launches["K8"], "host_us": norm["host_us"],
+              "cases": norm["cases"], "upload_u16_ms": norm["upload_u16_ms"],
+              "upload_f32_ms": norm["upload_f32_ms"], "dng_load_ms": dng["load_ms"],
+              "dng_upload_ms": dng["upload_ms"],
+              "dng_image_equal": dng["equal"],
+              "registers": ptxas["normalize_kernel"]["registers"]}),
+            ("K9", unpack[10], k9_launches,
+             {"launches_in": "io.unpack.unpack_raw10 and unpack_raw12 on 12 MP, once "
+              "each (phase 10 (f))", "launches_bench": bench_launches["K9"],
+              "host_us": unpack[10]["host_us"], "raw12": unpack[12],
+              "registers": ptxas["unpack_kernel<10>"]["registers"]})):
+        name, _, src, rep = KERNELS[key]
+        out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                    "replaces_kind": "host C++ (native/burst_loader.cpp), no pl.pallas_call",
+                    "launches": launches, "max_abs_err": row["err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": None, **extra})
+    return out
+
+
 def fused_entry(rows, launches, slice_k6, ptxas):
     """K6's entry of the ``kernels`` line: the main path's case (19 frames
     of 3000x4000, x2, Ts=16, Bayer-steerable), its launches per run of the
@@ -2567,7 +2911,7 @@ def main():
     log("phase 10 the user's entry: the CLI, the finishing routes, the graft entry, "
         "unprocess, unpacking")
     frames = make_burst(3000, 4000, 20, 0, device)
-    phase_entry(frames, device)
+    user_entry = phase_entry(frames, device)
     del frames
     log("phase 11 the multi-device path on torch.distributed (every rank on this card)")
     banded = phase_sharded(device, full_image)
@@ -2580,8 +2924,12 @@ def main():
     fused = phase_fused_full(frames, device, full_image)
     del frames, full_image
     phase_fused_accuracy(device)
+    log("phase 13 raw ingestion: K8 and K9 against their plain versions, the DNG entry")
+    norm = phase_normalize(device)
+    unpack = phase_unpack_kernel(device)
+    dng = phase_dng(device, norm["ms"])
     check_no_reference_imports()
-    log(f"phases 0-12 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
+    log(f"phases 0-13 took {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     entries = []
     for key, (name, fn, src, rep) in KERNELS.items():
@@ -2593,6 +2941,12 @@ def main():
             entries.append(refill_entry(
                 refill_groups_rows, refill_image_rows, fused_rows[0]["refill_rows"],
                 {"fused": fused["launches"]["K7"], "scan": launches["K7"]}, ptxas))
+            continue
+        if key == "K8":
+            entries += ingest_entries(norm, unpack, dng,
+                                      user_entry["unpack"]["launches"], launches, ptxas)
+            continue
+        if key == "K9":
             continue
         # per frame of the main path: the Ts=16 launches, each as often as a
         # frame of the path launches it

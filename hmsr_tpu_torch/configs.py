@@ -163,6 +163,7 @@ def sanitize_config(config, imshape):
     ard = config.accumulated_robustness_denoiser
     n_ard = sum(1 for x in (ard.median, ard.gauss, ard.merge) if x.enabled)
     bm = config.block_matching.tuning
+    correlation = (config.get("tpu") or {}).get("correlation", "direct")
     checks = [
         (config.scale >= 1, f"scale {config.scale} < 1"),
         (config.robustness.enabled or not n_ard,
@@ -178,6 +179,10 @@ def sanitize_config(config, imshape):
         (len(imshape) == 2, f"Input image shape should be 2D, got {imshape}."),
         (bm.flow_upscale_mode in ("nearest", "bilinear", "bicubic"),
          f"Unknown flow upscaling mode {bm.flow_upscale_mode}."),
+        # the JAX package's L2 correlation backends; both give K1's
+        # displacements (its FFT correlation equals the direct one)
+        (correlation in ("direct", "fft"),
+         f"Unknown tpu.correlation {correlation!r}, should be 'direct' or 'fft'."),
     ]
     for ok, msg in checks:
         if not ok:

@@ -1,11 +1,11 @@
-"""Raw burst ingestion (twin of :mod:`hmsr_tpu.io.burst`), on the host.
+"""Raw burst ingestion (twin of :mod:`hmsr_tpu.io.burst`).
 
 - a folder of ``*.dng`` (reference frame = index 0), read with ``rawpy`` and
   ``exifread``: ISO (clipped to [100, 3200]), CFA pattern with both greens
   mapped to channel 1, white/black levels, white balance, xyz2cam CCM, the
   DNG noise profile tag 0xC761, orientation; per-CFA-channel black-level
   subtraction, normalisation to [0, 1] and white-balance gains relative to
-  green;
+  green, on the device (:mod:`.native_loader`: K8 on the card);
 - or a ``.npz`` bundle carrying the same fields (:func:`save_npz_burst`).
 
 ``rawpy``/``exifread`` are optional: without them the DNG branch raises
@@ -20,6 +20,10 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from ..utils.types import resolve_device
+from .native_loader import normalize_burst
 
 
 class Burst(NamedTuple):
@@ -35,14 +39,15 @@ class Burst(NamedTuple):
     ref_path: Optional[str]
 
 
-def load_burst(burst_path, mode="bayer"):
-    """Load a burst from a folder of DNGs or a .npz bundle."""
+def load_burst(burst_path, mode="bayer", device="cuda"):
+    """Load a burst from a folder of DNGs (normalized on ``device``) or a
+    .npz bundle (its frames as stored, numpy)."""
     p = Path(burst_path)
     if p.suffix == ".npz" or (p.is_file() and p.suffix == ".npy"):
         return load_npz_burst(p)
     if p.is_dir() and glob.glob(os.path.join(p.as_posix(), "*.npz")):
         return load_npz_burst(glob.glob(os.path.join(p.as_posix(), "*.npz"))[0])
-    return load_dng_burst(p, mode=mode)
+    return load_dng_burst(p, mode=mode, device=device)
 
 
 def load_npz_burst(path):
@@ -63,26 +68,12 @@ def load_npz_burst(path):
                  orientation=ori, ref_path=None)
 
 
-def normalize_burst(frames_u16, cfa, black_levels, white_level, white_balance):
-    """uint16 (n, h, w) raw stack -> float32 (n, h, w):
-    ``(in - black[c]) / (white - black[c]) * wb[c] / wb[1]`` with c the CFA
-    channel at (y % 2, x % 2)."""
-    cfa = np.asarray(cfa, dtype=np.int32).reshape(4)
-    nc = int(cfa.max()) + 1
-    black = np.asarray(black_levels, dtype=np.float32)[:nc]
-    wb = np.asarray(white_balance, dtype=np.float32)
-    gain = (wb[:nc] / wb[1]) / (float(white_level) - black)
-    out = np.empty(frames_u16.shape, np.float32)
-    for i in range(2):
-        for j in range(2):
-            c = int(cfa[i * 2 + j])
-            out[:, i::2, j::2] = (frames_u16[:, i::2, j::2].astype(np.float32)
-                                  - black[c]) * gain[c]
-    return out
-
-
-def load_dng_burst(burst_path, mode="bayer"):
-    """Folder of .dng files -> Burst (requires rawpy + exifread)."""
+def load_dng_burst(burst_path, mode="bayer", device="cuda"):
+    """Folder of .dng files -> Burst (requires rawpy + exifread). Integer
+    frames are copied to ``device`` as uint16 one by one as they are read,
+    then normalized there (K8 on the card,
+    :func:`.native_loader.normalize_burst`): ``ref_raw`` and ``comp_raws``
+    are float32 tensors on ``device``. Float frames stay numpy, as read."""
     try:
         import exifread
         import rawpy
@@ -99,12 +90,6 @@ def load_dng_burst(burst_path, mode="bayer"):
         raise ValueError("At least one raw .dng file must be present in the "
                          "burst folder.")
 
-    raw_comp = []
-    for raw_path in raw_path_list[1:]:
-        with rawpy.imread(raw_path) as raw_obj:
-            raw_comp.append(raw_obj.raw_image.copy())
-    raw_comp = np.array(raw_comp)
-
     with rawpy.imread(raw_path_list[0]) as raw:
         ref_raw = raw.raw_image.copy()
         white_level = int(raw.white_level)
@@ -112,6 +97,23 @@ def load_dng_burst(burst_path, mode="bayer"):
         white_balance = raw.camera_whitebalance
         cfa = raw.raw_pattern.copy()
     cfa[cfa == 3] = 1       # both greens -> channel 1
+
+    stack = None
+    if np.issubdtype(ref_raw.dtype, np.integer):
+        # integer frames go to the device as uint16 as they are read: the
+        # host holds no stack of them
+        stack = torch.empty((len(raw_path_list), *ref_raw.shape), dtype=torch.uint16,
+                            device=resolve_device(device))
+        stack[0].copy_(_uint16(ref_raw, ref_raw.shape, raw_path_list[0]))
+        for i, raw_path in enumerate(raw_path_list[1:], 1):
+            with rawpy.imread(raw_path) as raw_obj:
+                stack[i].copy_(_uint16(raw_obj.raw_image, ref_raw.shape, raw_path))
+    else:
+        raw_comp = []
+        for raw_path in raw_path_list[1:]:
+            with rawpy.imread(raw_path) as raw_obj:
+                raw_comp.append(raw_obj.raw_image.copy())
+        raw_comp = np.array(raw_comp)
 
     with open(raw_path_list[0], "rb") as f:
         tags = exifread.process_file(f)
@@ -146,9 +148,9 @@ def load_dng_burst(burst_path, mode="bayer"):
         warnings.warn("The Image Orientation EXIF tag could not be found. "
                       "The image may be mirrored or misoriented.")
 
-    if np.issubdtype(ref_raw.dtype, np.integer):
-        stack = np.concatenate([ref_raw[None], raw_comp]).astype(np.uint16)
-        norm = normalize_burst(stack, cfa, black_levels, white_level, white_balance)
+    if stack is not None:
+        norm = normalize_burst(stack, cfa, black_levels, white_level, white_balance,
+                               device=device)
         ref_raw, raw_comp = norm[0], norm[1:]
     else:
         warnings.warn("Input DNG images are not in integer format: is the "
@@ -159,6 +161,14 @@ def load_dng_burst(burst_path, mode="bayer"):
                  white_balance=list(white_balance), noise_alpha=alpha,
                  noise_beta=beta, orientation=orientation,
                  ref_path=raw_path_list[0])
+
+
+def _uint16(image, shape, path):
+    """A decoded frame as a uint16 CPU tensor (no copy when it is one)."""
+    if image.shape != shape:
+        raise ValueError(f"{path}: frame of shape {image.shape}, the reference's is "
+                         f"{shape}")
+    return torch.from_numpy(np.ascontiguousarray(image, dtype=np.uint16))
 
 
 def save_npz_burst(path, frames, cfa, white_balance, iso=100, alpha=None,

@@ -1,5 +1,7 @@
 """Tile-wise translational block matching (twin of
-:mod:`hmsr_tpu.models.block_matching`, direct correlation only).
+:mod:`hmsr_tpu.models.block_matching`). The JAX package's L2 correlation
+backends (``tpu.correlation``: ``direct``, ``fft``) give the same
+displacements; the port has one search, K1, for both.
 
 Flow conventions: search windows sit at ``round(flow)`` (half-to-even); L2
 clamps coordinates to the image and ADDS the integer displacement to the

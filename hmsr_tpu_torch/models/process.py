@@ -56,11 +56,12 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 def process(burst_path, config=None, device="cuda"):
     """Process a raw burst folder / bundle into an RGB image; returns
-    ``(image, debug)`` on ``device``."""
+    ``(image, debug)`` on ``device``. A DNG folder's frames are normalized
+    there (K8 on the card)."""
     if config is None:
         config = default_config()
     burst = timer(load_burst, config.verbose >= 2, end_s=" -- Load burst")(
-        burst_path, mode=config.mode)
+        burst_path, mode=config.mode, device=device)
     return process_burst(burst, config, device)
 
 

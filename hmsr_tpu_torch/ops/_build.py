@@ -66,6 +66,8 @@ SIGNATURES = {
     "hmsr_refill": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "hmsr_cta_probe": [_I, _P, _I, _P, _I, _P],
     "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
+    "hmsr_normalize_bayer": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "hmsr_unpack_raw": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

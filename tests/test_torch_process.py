@@ -220,9 +220,10 @@ def test_dng_branch_without_rawpy(tmp_path):
 
 def test_normalize_burst_matches_jax():
     from hmsr_tpu.io.native_loader import normalize_burst
+    from hmsr_tpu_torch.io.native_loader import normalize_burst as port_normalize
     raw = np.random.RandomState(1).randint(60, 1023, (2, 8, 10)).astype(np.uint16)
     args = ([[2, 1], [1, 0]], [64, 60, 62, 60], 1023, [1.9, 1.0, 1.4, 1.0])
-    np.testing.assert_allclose(io.normalize_burst(raw, *args),
+    np.testing.assert_allclose(n(port_normalize(raw, *args, device="cpu")),
                                normalize_burst(raw, *args), rtol=1e-6)
 
 
