@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import wait
 from .raw2rgb import get_color_matrix
 
 
@@ -34,7 +35,8 @@ def gaussian_blur_nearest(img, sigma):
     ``scipy.ndimage.gaussian_filter(x, sigma, mode="nearest")`` per channel.
     Rows first, then columns, as the JAX twin."""
     k, lw = _gauss_kernel(sigma)
-    kern = torch.as_tensor(k, device=img.device)
+    with wait("process.finishing.blur"):         # a synchronous copy
+        kern = torch.as_tensor(k, device=img.device)
     x = img.permute(2, 0, 1)[:, None]                        # (C, 1, H, W)
     x = F.conv2d(F.pad(x, (0, 0, lw, lw), mode="replicate"),
                  kern.reshape(1, 1, 2 * lw + 1, 1))
@@ -62,7 +64,8 @@ def make_postprocess_device(do_color_correction=True, do_tonemapping=True,
     def fn(img):
         img = img.to(torch.float32)
         if cam2rgb is not None:
-            m = torch.as_tensor(cam2rgb, device=img.device)
+            with wait("process.finishing.ccm"):  # a synchronous copy
+                m = torch.as_tensor(cam2rgb, device=img.device)
             img = torch.clamp(torch.einsum("ij,hwj->hwi", m, img), 0.0, 1.0)
         if sharpen:
             img = img + amount * (img - gaussian_blur_nearest(img, radius))

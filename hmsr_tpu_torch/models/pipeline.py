@@ -57,6 +57,7 @@ import torch
 from ..ops.accumfix import REFILL_BORDER
 from ..ops.cuda_merge import merge_burst_accumulate, refill_image
 from ..ops.grey import compute_grey_image
+from ..utils.timing import span
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
@@ -164,9 +165,11 @@ def _as_tensor(x, device):
 def init_reference(ref_img, curves, config, cfa_pattern, white_balance):
     """The reference init: ``(align_state, ref_stats)``, the alignment
     state of the reference's grey image and its robustness statistics."""
-    align_state = init_alignment(to_grey(ref_img, config), config)
-    ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
-                                config)
+    with span("align"):
+        align_state = init_alignment(to_grey(ref_img, config), config)
+    with span("robustness"):
+        ref_stats = init_robustness(ref_img, cfa_pattern, white_balance, curves,
+                                    config)
     return align_state, ref_stats
 
 
@@ -176,13 +179,17 @@ def frame_step(frame, align_state, ref_stats, config, cfa_pattern, white_balance
     the raw tile grid (grey, align, the decimating grey's conversion), its
     robustness map (times ``weight`` where one is given: the sharded
     pipeline's zero-weight padding frames) and its kernel covariances."""
-    flow = to_raw_flow(align(align_state, to_grey(frame, config), config),
-                       frame.shape, config)
-    r = compute_robustness(frame, ref_stats, flow, cfa_pattern, white_balance,
-                           config)
-    if weight is not None:
-        r = r * weight
-    return flow, r, estimate_kernels(frame, config)
+    with span("align"):
+        flow = to_raw_flow(align(align_state, to_grey(frame, config), config),
+                           frame.shape, config)
+    with span("robustness"):
+        r = compute_robustness(frame, ref_stats, flow, cfa_pattern, white_balance,
+                               config)
+        if weight is not None:
+            r = r * weight
+    with span("kernels"):
+        covs = estimate_kernels(frame, config)
+    return flow, r, covs
 
 
 def merge_reference(ref_img, num, den, cfa_pattern, config, acc_r=None,
@@ -190,16 +197,19 @@ def merge_reference(ref_img, num, den, cfa_pattern, config, acc_r=None,
     """The reference frame's merge into (num, den) in place, with the
     accumulated-robustness denoiser when it is enabled (``acc_r``)."""
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
-    return merge_ref_tiled(ref_img, estimate_kernels(ref_img, config), num, den,
-                           cfa_pattern, config, acc_rob=acc_r if denoise else None,
-                           row_offset=row_offset)
+    with span("kernels"):
+        covs = estimate_kernels(ref_img, config)
+    with span("merge"):
+        return merge_ref_tiled(ref_img, covs, num, den, cfa_pattern, config,
+                               acc_rob=acc_r if denoise else None, row_offset=row_offset)
 
 
 def normalize_image(num, den):
     """The border-strip refill and divide of the whole accumulators, one
     launch of K7 on the card (:func:`~..ops.cuda_merge.refill_image`): the
     ``(round(s H), round(s W), c)`` image."""
-    return refill_image(num, den, REFILL_BORDER).permute(1, 2, 0)
+    with span("merge"):
+        return refill_image(num, den, REFILL_BORDER).permute(1, 2, 0)
 
 
 def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
@@ -213,10 +223,11 @@ def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
     ts = int(config.block_matching.tuning.tile_size)
     f0 = comp_imgs.shape[0]
     fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), f0))
-    for c0 in range(0, f0, fc):
-        c1 = min(c0 + fc, f0)
-        merge_burst_accumulate(comp_imgs[c0:c1], flows[c0:c1], covs_stack[c0:c1],
-                               rmaps[c0:c1], num, den, cfa_pattern, ts, s, grey, iso)
+    with span("merge"):
+        for c0 in range(0, f0, fc):
+            c1 = min(c0 + fc, f0)
+            merge_burst_accumulate(comp_imgs[c0:c1], flows[c0:c1], covs_stack[c0:c1],
+                                   rmaps[c0:c1], num, den, cfa_pattern, ts, s, grey, iso)
     return num, den
 
 
@@ -260,7 +271,8 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
         if stacked:
             covs_list.append(covs)
         else:
-            merge_frame(frame, flow, covs, r, num, den, cfa_pattern, config)
+            with span("merge"):
+                merge_frame(frame, flow, covs, r, num, den, cfa_pattern, config)
         if debug_mode or stacked:
             flows.append(flow)
             rmaps.append(r)
@@ -278,12 +290,14 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
                              num, den, cfa_pattern, config)
     elif form == "vmapped" and flow_stack is not None:
         for f in range(len(comp_imgs)):
-            merge_frame(comp_imgs[f], flow_stack[f], covs_stack[f], r_stack[f], num,
-                        den, cfa_pattern, config)
+            with span("merge"):
+                merge_frame(comp_imgs[f], flow_stack[f], covs_stack[f], r_stack[f], num,
+                            den, cfa_pattern, config)
     if form == "fused":
-        image = merge_burst_fused(ref_img, estimate_kernels(ref_img, config),
-                                  comp_imgs, flow_stack, covs_stack, r_stack,
-                                  cfa_pattern, config, acc_r)
+        with span("kernels"):
+            ref_covs = estimate_kernels(ref_img, config)
+        image = merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack,
+                                  r_stack, cfa_pattern, config, acc_r)
     else:
         del covs_stack
         merge_reference(ref_img, num, den, cfa_pattern, config, acc_r)
@@ -315,9 +329,11 @@ def merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack, r_st
         covs_stack = ref_covs.new_zeros((0, *ref_covs.shape))
     slab = config.get("tpu", {}).get("fused_impl", "slab") == "slab"
     fused_impl = merge_burst_slab if slab else merge_burst_tiled
-    image = fused_impl(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack, ref_img,
-                       ref_covs, cfa_pattern, config, acc_rob=acc_r if denoise else None)
-    return image.permute(1, 2, 0)
+    with span("merge"):
+        image = fused_impl(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack, ref_img,
+                           ref_covs, cfa_pattern, config,
+                           acc_rob=acc_r if denoise else None)
+        return image.permute(1, 2, 0)
 
 
 def make_pipeline(config, cfa_pattern, white_balance, device="cuda"):

@@ -42,7 +42,7 @@ from ..io.burst import Burst, load_burst
 from ..noise import fit_alpha_beta, load_noise_curves, run_fast_MC
 from ..noise.fast_monte_carlo import N_BRIGHTNESS_LEVELS
 from ..parallel import make_mesh, make_sharded_pipeline, pad_frames
-from ..utils.timing import getTime, timer
+from ..utils.timing import getTime, recording, span, timer, wait
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 from .alignment import align, init_alignment
 from .kernels import estimate_kernels
@@ -177,45 +177,72 @@ def _try_iso_curves(burst, config):
 def process_burst(burst, config, device="cuda"):
     """Returns ``(image, debug)`` on ``device``, the image (round(s H),
     round(s W), 3) with the finishing on; ``config`` is resolved in place
-    (noise model, SNR-based entries), as in the JAX package."""
-    t0 = time.perf_counter()
+    (noise model, SNR-based entries), as in the JAX package.
+
+    The call is the span ``process`` of the span recorder
+    (:mod:`..utils.timing`), its steps the spans ``process.<step>``, and it
+    advances the recorder's burst id. With ``tpu.profile_dir`` the whole
+    call runs under ``torch.profiler`` with the recorder on, and the trace,
+    its spans as ``hmsr::<name>`` ranges, goes to
+    ``<profile_dir>/pipeline_trace.json``."""
     device = resolve_device(device)
+    profile_dir = config.get("tpu", {}).get("profile_dir", None)
+    if not profile_dir:
+        with span("process", new_burst=True):
+            return _process_burst(burst, config, device)
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof, recording():
+        with span("process", new_burst=True):
+            out = _process_burst(burst, config, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
+    return out
+
+
+def _process_burst(burst, config, device):
+    t0 = time.perf_counter()
     mesh = mesh_of(config)
     verbose_1 = config.verbose >= 1
     verbose_2 = config.verbose >= 2
-    ref = torch.as_tensor(burst.ref_raw, dtype=DEFAULT_FLOAT, device=device)
-    comps = torch.as_tensor(burst.comp_raws, dtype=DEFAULT_FLOAT, device=device)
+    with wait("process.upload"):
+        ref = torch.as_tensor(burst.ref_raw, dtype=DEFAULT_FLOAT, device=device)
+        comps = torch.as_tensor(burst.comp_raws, dtype=DEFAULT_FLOAT, device=device)
     burst = burst._replace(ref_raw=ref, comp_raws=comps)
 
     # ---- noise model: user-provided > burst noise profile > ISO-keyed curves
-    std_curve = diff_curve = None
-    if config.noise_model.get("alpha", None) is not None:
-        if verbose_1:
-            print("Using user provided alpha and beta values")
-        alpha, beta = config.noise_model.alpha, config.noise_model.beta
-    elif burst.noise_alpha is not None:
-        alpha, beta = burst.noise_alpha, burst.noise_beta
-    else:
-        std_curve, diff_curve = _try_iso_curves(burst, config)
-        if std_curve is None:
-            raise ValueError(
-                "No noise model available: provide noise_model.alpha/beta in "
-                "the config, use bundles carrying a noise profile, or ship "
-                "ISO-keyed curves (noise_model.data_dir).")
-        if verbose_1:
-            print(f"Using ISO-keyed noise curves (ISO {burst.iso})")
-        alpha, beta = fit_alpha_beta(std_curve)
-    config.noise_model.update({"alpha": float(alpha), "beta": float(beta)})
+    with span("process.noise"):
+        std_curve = diff_curve = None
+        if config.noise_model.get("alpha", None) is not None:
+            if verbose_1:
+                print("Using user provided alpha and beta values")
+            alpha, beta = config.noise_model.alpha, config.noise_model.beta
+        elif burst.noise_alpha is not None:
+            alpha, beta = burst.noise_alpha, burst.noise_beta
+        else:
+            std_curve, diff_curve = _try_iso_curves(burst, config)
+            if std_curve is None:
+                raise ValueError(
+                    "No noise model available: provide noise_model.alpha/beta in "
+                    "the config, use bundles carrying a noise profile, or ship "
+                    "ISO-keyed curves (noise_model.data_dir).")
+            if verbose_1:
+                print(f"Using ISO-keyed noise curves (ISO {burst.iso})")
+            alpha, beta = fit_alpha_beta(std_curve)
+        config.noise_model.update({"alpha": float(alpha), "beta": float(beta)})
 
-    # ---- Monte-Carlo noise curves on the device (cached per alpha/beta)
-    if std_curve is None:
-        std_curve, diff_curve = run_fast_MC(alpha, beta, device=device) \
-            if mesh is None else broadcast_mc_curves(alpha, beta, device)
+        # ---- Monte-Carlo noise curves on the device (cached per alpha/beta)
+        if std_curve is None:
+            std_curve, diff_curve = run_fast_MC(alpha, beta, device=device) \
+                if mesh is None else broadcast_mc_curves(alpha, beta, device)
     if verbose_2:
         t0 = getTime(t0, " -- Read raw files & noise curves")
 
     # ---- SNR-adaptive hyperparameters
-    brightness = float(torch.mean(ref, dtype=torch.float64))
+    with wait("process.snr"):
+        brightness = float(torch.mean(ref, dtype=torch.float64))
     id_noise = int(round(1000 * brightness))
     std = std_curve[np.clip(id_noise, 0, len(std_curve) - 1)]
     snr = brightness / std
@@ -230,45 +257,33 @@ def process_burst(burst, config, device="cuda"):
     ard = config.accumulated_robustness_denoiser
     ard.enabled = bool(ard.median.enabled or ard.gauss.enabled or ard.merge.enabled)
 
-    # ---- the pipeline (sharded over the ranks with a mesh), optionally under
-    # torch.profiler
-    curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
-              torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
-    if mesh is None:
-        if config.verbose >= 3:
-            _trace_stages(burst, std_curve, diff_curve, config, device)
-        pipe = make_pipeline(config, burst.cfa, burst.white_balance, device)
+    # ---- the pipeline (sharded over the ranks with a mesh)
+    with wait("process.curves"):
+        curves = (torch.as_tensor(std_curve, dtype=DEFAULT_FLOAT, device=device),
+                  torch.as_tensor(diff_curve, dtype=DEFAULT_FLOAT, device=device))
+    with span("process.pipeline"):
+        if mesh is None:
+            if config.verbose >= 3:
+                _trace_stages(burst, std_curve, diff_curve, config, device)
+            pipe = make_pipeline(config, burst.cfa, burst.white_balance, device)
 
-        def run():
-            return pipe(ref, comps, *curves)
-    else:
-        sharded = make_sharded_pipeline(config, burst.cfa, burst.white_balance, mesh,
-                                        device)
-        frames, weights = pad_frames(comps, mesh.n_frames)
+            def run():
+                return pipe(ref, comps, *curves)
+        else:
+            sharded = make_sharded_pipeline(config, burst.cfa, burst.white_balance, mesh,
+                                            device)
+            frames, weights = pad_frames(comps, mesh.n_frames)
 
-        def run():
-            outs = sharded(ref, frames, weights, *curves)
-            debug = {}
-            if ard.enabled or config.robustness.save_mask:
-                debug["accumulated_robustness"] = outs[1]
-            if config.debug:            # without the zero-weight padding frames
-                debug["flow"] = outs[2][:len(comps)]
-                debug["robustness"] = outs[3][:len(comps)]
-            return outs[0], debug
-    run = timer(run, verbose_2, end_s=" -- Device pipeline (align+merge)")
-    profile_dir = config.get("tpu", {}).get("profile_dir", None)
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU] + \
-            ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            image, debug = run()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "pipeline_trace.json"))
-    else:
-        image, debug = run()
+            def run():
+                outs = sharded(ref, frames, weights, *curves)
+                debug = {}
+                if ard.enabled or config.robustness.save_mask:
+                    debug["accumulated_robustness"] = outs[1]
+                if config.debug:            # without the zero-weight padding frames
+                    debug["flow"] = outs[2][:len(comps)]
+                    debug["robustness"] = outs[3][:len(comps)]
+                return outs[0], debug
+        image, debug = timer(run, verbose_2, end_s=" -- Device pipeline (align+merge)")()
 
     # ---- frame-count-aware post denoising, with the pipeline's scale
     if ard.median.enabled or ard.gauss.enabled:
@@ -276,12 +291,13 @@ def process_burst(burst, config, device="cuda"):
             print("-- Robustness aware bluring")
         t_dn = time.perf_counter()
         acc_r = debug["accumulated_robustness"]
-        for cfg, fn in ((ard.median, frame_count_denoising_median),
-                        (ard.gauss, frame_count_denoising_gauss)):
-            if cfg.enabled:
-                dc = cfg.copy()
-                dc["scale"] = config.scale
-                image = fn(image, acc_r, dc)
+        with span("process.denoise"):
+            for cfg, fn in ((ard.median, frame_count_denoising_median),
+                            (ard.gauss, frame_count_denoising_gauss)):
+                if cfg.enabled:
+                    dc = cfg.copy()
+                    dc["scale"] = config.scale
+                    image = fn(image, acc_r, dc)
         if verbose_2:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -301,15 +317,19 @@ def process_burst(burst, config, device="cuda"):
             fin = make_postprocess_device(**kw)
         else:
             def fin(rgb):
-                out = postprocess(rgb.cpu().numpy(), **kw)
+                with wait("process.finishing.download"):
+                    rgb = rgb.cpu().numpy()
+                out = postprocess(rgb, **kw)
                 return torch.as_tensor(out, dtype=DEFAULT_FLOAT, device=device)
         rgb = image.expand(-1, -1, 3) if image.shape[-1] == 1 else image
-        image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(rgb)
+        with span("process.finishing"):
+            image = timer(fin, verbose_2, end_s=" -- Finishing ISP")(rgb)
 
-    image = apply_orientation(image, burst.orientation)
-    if "accumulated_robustness" in debug:
-        debug["accumulated_robustness"] = apply_orientation(
-            debug["accumulated_robustness"], burst.orientation)
+    with span("process.orientation"):
+        image = apply_orientation(image, burst.orientation)
+        if "accumulated_robustness" in debug:
+            debug["accumulated_robustness"] = apply_orientation(
+                debug["accumulated_robustness"], burst.orientation)
 
     if verbose_1:
         s = "\nTotal ellapsed time : "

@@ -45,6 +45,7 @@ from ..models.merge import merge
 from ..models.merge_tiled import integer_scale, merge_tiled
 from ..models.pipeline import (_as_tensor, accum_shape, frame_step, init_reference,
                                merge_reference, normalize_image)
+from ..utils.timing import span
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 
 
@@ -208,8 +209,9 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, device=None)
                                        weight)
             if acc_r is not None:
                 acc_r = acc_r + r
-            merge_frame(frame, flow, covs, r, num, den, cfa, config,
-                        row_offset=row_offset)
+            with span("merge"):
+                merge_frame(frame, flow, covs, r, num, den, cfa, config,
+                            row_offset=row_offset)
             if debug_mode:
                 flows.append(flow.to(DEFAULT_FLOAT))
                 rmaps.append(r)

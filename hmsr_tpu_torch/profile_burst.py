@@ -9,34 +9,32 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
 ``--pipeline``: scan, chunked with chunks of 5, fused (K6 and K7's refill
-per slab) or vmapped; the others than fused end in K7's border-strip
-refill, the ``refill_image`` stage; ``--mode grey``:
-``bench.py``'s grey cell, the frames taken as grey images; ``--scale``: the
-output scale, with ``bench.py``'s mutations of its x3 and x1 cells at 3
-and 1, :data:`SCALE_CELLS`) once to warm up,
-:data:`RUNS` times unprofiled (wall seconds, each and the median), and once
-under ``torch.profiler`` with a ``record_function`` range around every stage
-call of :mod:`hmsr_tpu_torch.models.pipeline`. For the unprofiled runs it
-prints each run's wall and the host's share of it: the seconds until the
-pipeline call returns, before the closing synchronise (when that is close
-to the wall, the host bounds the run), and per stage the median host
-milliseconds spent inside its calls (the card's back-pressure on a full
-launch queue included). For the profiled run it prints:
+per slab) or vmapped; ``--mode grey``: ``bench.py``'s grey cell, the frames
+taken as grey images; ``--scale``: the output scale, with ``bench.py``'s
+mutations of its x3 and x1 cells at 3 and 1, :data:`SCALE_CELLS`) once to
+warm up, :data:`RUNS` times unprofiled with the program's span recorder on
+(:mod:`hmsr_tpu_torch.utils.timing`), and once under ``torch.profiler``. The
+stages are the program's own spans (``align``, ``robustness``, ``kernels``,
+``merge``); what runs in the pipeline outside them is its glue. For the
+unprofiled runs it prints each run's wall and the host's share of it: the
+seconds until the pipeline call returns, before the closing synchronise
+(when that is close to the wall, the host bounds the run), and per stage
+the median host milliseconds inside its spans (the card's back-pressure on
+a full launch queue included). For the profiled run it prints:
 
 - its wall seconds, and the kernel-only device time: the self device time
-  of every CUDA kernel row, annotations excluded; the busy share is that
-  over the same run's wall time;
-- per stage: calls, and the device time of the kernels launched inside
-  its range. Torch's kernels are found through the host ops that launch
-  them (so the GPU-side copy of each range is not counted again). The
-  hand-written kernels are launched through ctypes, outside the profiler's
-  op tree: each is added to the stage that launches it (:data:`LAUNCHED_BY`),
-  K4's time split between its two stages by launch count;
+  of every CUDA kernel row, the spans' device-side copies excluded; the
+  busy share is that over the same run's wall time;
+- per stage: spans entered, kernels, and the device time of the operations
+  launched inside its ``hmsr::`` ranges: each device operation goes to the
+  innermost range open on its thread when the operator it is linked to
+  started or, for a kernel launched through ctypes outside any operator,
+  when its CUDA runtime call did;
 - the device time and launches of each hand-written kernel (profiler rows
   matched by :func:`kernel_base_name`, so a templated instantiation such as
-  ``void name<4>(...)`` counts as ``name``), and the
-  heaviest device rows; a hand-written kernel whose wrapper counted
-  launches in the profiled run but that shows no device time raises;
+  ``void name<4>(...)`` counts as ``name``), and the heaviest device rows; a
+  hand-written kernel whose wrapper counted launches in the profiled run
+  but that shows no device time raises;
 - the heaviest host rows by self CPU time (the CUDA runtime calls among
   them: allocations, frees, synchronisations).
 
@@ -44,25 +42,24 @@ The table goes to stdout, and also to ``--out`` when it is given.
 """
 
 import argparse
+import bisect
 import os
 import statistics
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from .measure import card
 from .models import pipeline as P
 from .ops import cuda_ica, cuda_merge, cuda_warp
 from .synthetic import (BENCH_CELLS, CFA_RGGB, WB, affine_curves, burst_config,
                         burst_snr, make_burst)
+from .utils import timing
 
-STAGES = ("init_alignment", "init_robustness", "compute_grey_image", "align",
-          "compute_robustness", "estimate_kernels", "merge_tiled", "merge",
-          "_merge_burst_chunked", "merge_burst_fused", "merge_ref_tiled",
-          "refill_image")
 RUNS = 5                # unprofiled warm runs: the wall spread between runs
+GLUE = "(glue)"         # the pipeline outside every stage span
 
 #: scales whose ``bench.py`` cell mutates more than the scale
 #: (:data:`hmsr_tpu_torch.synthetic.BENCH_CELLS`)
@@ -75,37 +72,6 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.
                 "merge_burst_kernel": cuda_merge.merge_burst_accumulate,
                 "merge_fused_kernel": cuda_merge.merge_fused_accumulate,
                 "refill_kernel": cuda_merge.refill_groups}
-#: stage -> (hand-written kernel, its launches per burst from that stage);
-#: None stands for "every launch of the burst". A stage that the profiled
-#: run did not enter takes none.
-LAUNCHED_BY = {
-    "align": (("bm_kernel", None), ("ica_steps_kernel", None), ("ica_fused_kernel", None)),
-    "compute_robustness": (("warp_kernel", "n_cmp"),),
-    "init_robustness": (("warp_kernel", 2),),
-    "merge_tiled": (("merge_kernel", None),),
-    "_merge_burst_chunked": (("merge_burst_kernel", None),),
-    "merge_burst_fused": (("merge_fused_kernel", None), ("refill_kernel", None)),
-    "refill_image": (("refill_kernel", None),),
-}
-
-
-#: stage -> host seconds spent inside its calls since the last clear
-HOST_S = {}
-
-
-def _instrument():
-    """Wrap each stage function the pipeline calls in a named range, and
-    add the host seconds of each call to :data:`HOST_S`."""
-    for name in STAGES:
-        fn = getattr(P, name)
-
-        def wrapped(*a, _fn=fn, _name=name, **k):
-            t0 = time.perf_counter()
-            with record_function("stage::" + _name):
-                out = _fn(*a, **k)
-            HOST_S[_name] = HOST_S.get(_name, 0.0) + time.perf_counter() - t0
-            return out
-        setattr(P, name, wrapped)
 
 
 def kernel_base_name(key):
@@ -131,10 +97,39 @@ def _self_device_us(e):
     return e.self_cuda_time_total if t is None else t
 
 
-def _kernel_us(e):
-    """Device time of the kernels launched under host event ``e``."""
-    return (sum(k.duration for k in e.kernels if not k.name.startswith("stage::"))
-            + sum(_kernel_us(c) for c in e.cpu_children))
+def stage_device(prof):
+    """Per innermost ``hmsr::`` range (:data:`GLUE` for none): ``(kernels,
+    device ns)`` of the device operations launched inside it, each placed by
+    its linked operator or, failing that, by its runtime call."""
+    ops, host, ranges = [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if not name.startswith(timing.RANGE_PREFIX):
+                ops.append(e)
+            continue
+        if name.startswith(timing.RANGE_PREFIX):
+            ranges.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns(), name[len(timing.RANGE_PREFIX):]))
+        if name.startswith("cu") or e.linked_correlation_id() == 0:
+            host[("call" if name.startswith("cu") else "op", e.correlation_id())] = e
+    for rs in ranges.values():
+        rs.sort()
+    out = {}
+    for o in ops:
+        h = host.get(("op", o.linked_correlation_id())) if o.linked_correlation_id() else None
+        h = h or host.get(("call", o.correlation_id()))
+        name = GLUE
+        if h is not None:
+            rs, ts = ranges.get(h.start_thread_id(), []), h.start_ns()
+            for s, e, n in reversed(rs[:bisect.bisect_right(rs, (ts, float("inf"), ""))]):
+                if s <= ts < e:         # the latest-started range holding it is innermost
+                    name = n
+                    break
+        k, ns = out.get(name, (0, 0))
+        out[name] = (k + (not o.name().lower().startswith(("memcpy", "memset"))),
+                     ns + o.duration_ns())
+    return out
 
 
 def main(argv=None):
@@ -154,7 +149,6 @@ def main(argv=None):
     dev = "cuda"
     smi = card()
 
-    _instrument()
     frames = make_burst(args.height, args.width, args.frames, args.seed, dev)
     std, diff = affine_curves()
     scale = int(args.scale) if args.scale == int(args.scale) else args.scale
@@ -169,33 +163,36 @@ def main(argv=None):
     pipe(*run_args)
     torch.cuda.synchronize()
     walls, enqueues, host = [], [], []
-    for _ in range(RUNS):
-        HOST_S.clear()
-        t0 = time.perf_counter()
-        pipe(*run_args)
-        enqueues.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        host.append(dict(HOST_S))
+    with timing.recording():
+        for _ in range(RUNS):
+            timing.collect()
+            t0 = time.perf_counter()
+            pipe(*run_args)
+            enqueues.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            ms = {}
+            for s in timing.collect()["spans"]:
+                ms[s["name"]] = ms.get(s["name"], 0.0) + (s["end_ns"] - s["start_ns"]) / 1e6
+            ms[GLUE] = 1e3 * enqueues[-1] - sum(ms.values())
+            host.append(ms)
     for fn in HAND_WRITTEN.values():
         fn.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            timing.recording():
         t0 = time.perf_counter()
         pipe(*run_args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        entries = timing.collect()["counts"]["entries"]
     wrapper_launches = {name: fn.launches for name, fn in HAND_WRITTEN.items()}
 
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("stage::")]
+               and not e.key.startswith(timing.RANGE_PREFIX)]
     busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
-    stages = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith("stage::"):
-            n, us = stages.get(e.name[len("stage::"):], (0, 0.0))
-            stages[e.name[len("stage::"):]] = (n + 1, us + _kernel_us(e))
+    stages = stage_device(prof)
     ours = {name: (0.0, 0) for name in HAND_WRITTEN}
     for e in kernels:
         base = kernel_base_name(e.key)
@@ -206,15 +203,6 @@ def main(argv=None):
     if missing:
         raise RuntimeError(f"hand-written kernels launched {wrapper_launches} but without "
                            f"device time in the profile: {missing}")
-    for stage, launched in LAUNCHED_BY.items():
-        if stage not in stages:
-            continue
-        for kname, n_from in launched:
-            ms, n = ours[kname]
-            share = 1.0 if n_from is None else \
-                (args.frames - 1 if n_from == "n_cmp" else n_from) / max(n, 1)
-            calls, us = stages.get(stage, (0, 0.0))
-            stages[stage] = (calls, us + 1e3 * ms * share)
     lines = [smi,
              f"burst {args.frames}x{args.height}x{args.width} x{config.scale}, Ts="
              f"{config.block_matching.tuning.tile_size}, pipeline {args.pipeline}, "
@@ -223,17 +211,18 @@ def main(argv=None):
              f"median {statistics.median(walls):.4f} s",
              f"  host until the call returns: {', '.join(f'{t:.4f}' for t in enqueues)} "
              f"s, median {statistics.median(enqueues):.4f} s",
-             "  host ms inside each stage's calls (median of the runs): " + ", ".join(
-                 f"{name} {1e3 * statistics.median(h.get(name, 0.0) for h in host):.2f}"
-                 for name in STAGES if any(name in h for h in host)),
+             "  host ms inside each stage's spans (median of the runs): " + ", ".join(
+                 f"{name} {statistics.median(h.get(name, 0.0) for h in host):.2f}"
+                 for name in sorted(host[0])),
              f"profiled run: wall {wall:.4f} s, kernel-only device time "
              f"{busy_ms:.2f} ms over {n_launch} launches, busy share "
              f"{busy_ms / (wall * 1e3):.3f} of the profiled wall",
-             "stages (calls, device ms of the kernels inside the range):"]
-    lines += [f"  {name:20s} {n:5d} {us / 1e3:10.2f}"
-              for name, (n, us) in sorted(stages.items(), key=lambda kv: -kv[1][1])]
-    lines.append(f"  {'(sum of stages)':20s}       "
-                 f"{sum(us for _, us in stages.values()) / 1e3:10.2f}")
+             "stages (spans entered, kernels, device ms of the operations launched in "
+             "their ranges):"]
+    lines += [f"  {name:12s} {entries.get(name, 0):5d} {k:6d} {ns / 1e6:10.2f}"
+              for name, (k, ns) in sorted(stages.items(), key=lambda kv: -kv[1][1])]
+    lines.append(f"  {'(sum)':12s}       {sum(k for k, _ in stages.values()):6d} "
+                 f"{sum(ns for _, ns in stages.values()) / 1e6:10.2f}")
     lines.append("hand-written kernels (device ms, profiler launches, wrapper launches):")
     lines += [f"  {k:20s} {ms:10.2f} {n:6d} {wrapper_launches[k]:6d}"
               for k, (ms, n) in ours.items()]
@@ -241,8 +230,8 @@ def main(argv=None):
     for e in sorted(kernels, key=lambda e: -_self_device_us(e))[:30]:
         lines.append(f"  {e.key[:80]:80s} {_self_device_us(e) / 1e3:9.2f} {e.count:6d}")
     lines.append("heaviest host rows (self CPU ms, calls):")
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
+    cpu_rows = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(cpu_rows, key=lambda e: -e.self_cpu_time_total)[:15]:
         lines.append(f"  {e.key[:80]:80s} {e.self_cpu_time_total / 1e3:9.2f} {e.count:6d}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

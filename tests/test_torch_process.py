@@ -7,6 +7,7 @@ the curves come from the repo's ``data/``), which is deterministic, with the
 JAX reference on its scan pipeline, tiled merge and device finishing.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -255,6 +256,10 @@ def test_process_npz_verbose_profile(tmp_path, capsys, monkeypatch):
     assert tuple(img.shape) == (192, 128, 3)                  # rotated 90
     assert tuple(dbg["accumulated_robustness"].shape) == (96, 64)
     assert os.listdir(tmp_path / "prof")
+    # the whole call, upload to orientation, with the program's spans
+    with open(tmp_path / "prof" / "pipeline_trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"hmsr::process.upload", "hmsr::merge", "hmsr::process.orientation"} <= names
     out = capsys.readouterr().out
     assert "--- Merge (one frame)" in out and "Estimated SNR" in out
     assert c.noise_model.alpha == ALPHA                        # the bundle's
