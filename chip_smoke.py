@@ -11,19 +11,21 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the ten kernels (K1 block matching, K2 ICA Gauss-Newton steps,
+1. build the eleven kernels (K1 block matching, K2 ICA Gauss-Newton steps,
    K3 fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge, K6 the
    fused form's burst-and-reference merge, K7 its refill and divide, K8 the
-   raw burst's normalization, K9 RAW10/RAW12 unpacking) and the probes P1
-   and P2 from ``hmsr_tpu_torch/csrc``;
+   raw burst's normalization, K9 RAW10/RAW12 unpacking, K10 a compared
+   frame's robustness map) and the probes P1 and P2 from
+   ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
    instantiation of a templated kernel: K5 and K5' have one per variant,
    ``merge_kernel<G,ISO>`` with G = 2 Bayer, 1 grey and ISO = 1 for the
    isotropic kernel), the launch layouts that the library computes for K1
-   per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c) and K5/K5' per
-   (Ts, scale, variant), and the static SASS instructions of every
-   instantiation of K1-K9 (``cuobjdump -sass`` of the library), in all
+   per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c), K5/K5' per
+   (Ts, scale, variant) and K10 per (Ts, mode) (the library's against the
+   wrapper's), and the static SASS instructions of every
+   instantiation of K1-K10 (``cuobjdump -sass`` of the library), in all
    and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
@@ -38,6 +40,11 @@ and power limit:
    upscale (K1: ts 8, 12, 16, 24 with r 1, 2, 4, 16; K2 and K3: ts 12 and
    24, and every fixed ts on a level with a flat (singular) tile; K4: 4 and
    2 channels, u=4, Ts=6 on a width that is no multiple of 4), untimed;
+   K10 against the chain of torch ops around K4 that is its plain version
+   (max|d| <= 1e-6, the same zero set), Bayer at Ts=16, 32 and 64 and grey
+   at Ts=16 on 3000x4000 (timed), and untimed at run-time tile sizes (6, 8)
+   and raw sizes that are no multiple of Ts, 4 or 2, every one with border
+   tiles' flows pushing their windows out of the grid;
    then K5 and K5' in every variant at
    scales 1, 2 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
    kernel's device time alone (:func:`hmsr_tpu_torch.measure.timed`: back
@@ -219,8 +226,9 @@ from hmsr_tpu_torch.models.kernels import estimate_kernels
 from hmsr_tpu_torch.models.pipeline import (_use_tiled, accum_shape, make_pipeline,
                                              pipeline_form, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
+from hmsr_tpu_torch.models.robustness import init_robustness
 from hmsr_tpu_torch.ops import (_build, cuda_ica, cuda_ingest, cuda_merge, cuda_probes,
-                                 cuda_warp)
+                                 cuda_robustness, cuda_warp)
 from hmsr_tpu_torch.ops.accumfix import REFILL_BORDER, STARVED_DEN, normalize_accum
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
@@ -257,6 +265,10 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
            "hmsr_tpu/io/native_loader.py:59"),
     "K9": ("K9 MIPI RAW10/RAW12 unpacking", cuda_ingest.unpack_raw,
            "hmsr_tpu_torch/csrc/ingest.cu", "hmsr_tpu/io/native_loader.py:98"),
+    # replaces XLA code of the JAX package around its warp kernel
+    "K10": ("K10 robustness map (guide, means, K4's warp, distance, threshold, 5x5 "
+            "minimum)", cuda_robustness.robustness_fused,
+            "hmsr_tpu_torch/csrc/robustness.cu", "hmsr_tpu/models/robustness.py:239"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
 #: counts stay out of the path's counts)
@@ -271,12 +283,12 @@ CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: launches per bright 20-frame burst, scan and chunked (chunks of 5), from
 #: frames already loaded (a DNG folder's load adds one K8)
 BRIGHT_LAUNCHES = {
-    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 19, "K5'": 0, "K6": 0,
-             "K7": 1, "K8": 0, "K9": 0},
-    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 4, "K6": 0,
-                "K7": 1, "K8": 0, "K9": 0},
-    "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 21, "K5": 0, "K5'": 0, "K6": 1,
-              "K7": 1, "K8": 0, "K9": 0}}
+    "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 19, "K5'": 0, "K6": 0,
+             "K7": 1, "K8": 0, "K9": 0, "K10": 19},
+    "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 0, "K5'": 4, "K6": 0,
+                "K7": 1, "K8": 0, "K9": 0, "K10": 19},
+    "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 0, "K5'": 0, "K6": 1,
+              "K7": 1, "K8": 0, "K9": 0, "K10": 19}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB); fused, also per
@@ -290,6 +302,7 @@ DEFAULT_FORM = "fused"
 MERGE_KERNELS = {"K5": "merge_kernel", "K5'": "merge_burst_kernel"}
 FUSED_KERNEL = "merge_fused_kernel"     # K6, merge_fused_kernel<G,ISO>
 REFILL_KERNEL = "refill_kernel"         # K7
+ROBUSTNESS_KERNEL = "robustness_kernel"  # K10, robustness_kernel<C,TS>
 INGEST_KERNELS = ("normalize_kernel", "unpack_kernel")   # K8, K9 (unpack_kernel<BITS>)
 #: the variants of K5 and K5' (grey, iso), the main path's first
 MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
@@ -390,8 +403,20 @@ def phase_build(raw_shape):
             f"{g['tiles']} tiles of a tile row per block of {g['threads']} threads "
             f"(4 pixels each), window {g['window']}x{g['window']}, "
             f"{g['smem_bytes']} B dynamic shared memory")
+    for Ts in (16, 32, 64, *(Ts for Ts, _, _ in ROB_RUNTIME)):
+        for grey in (False, True):
+            g = cuda_robustness.library_layout(Ts, grey)
+            mine = cuda_robustness.robustness_layout(Ts, grey)
+            if g != mine:
+                raise AssertionError(f"K10 Ts={Ts} grey={grey}: the library's layout {g}, "
+                                     f"the wrapper's {mine}")
+            log(f"  K10 Ts={Ts} {'grey' if grey else 'Bayer'} launch layout: "
+                f"{'its own instantiation' if g['fixed'] else 'run-time Ts'}, "
+                f"{g['tiles_y']}x{g['tiles_x']} tiles per block of {g['threads']} threads, "
+                f"{g['smem_bytes']} B dynamic shared memory")
     bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
-             *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL, *INGEST_KERNELS}
+             *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL, *INGEST_KERNELS,
+             ROBUSTNESS_KERNEL}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -693,6 +718,84 @@ def check_runtime_instantiations(device, rng, h=600, w=808):
                                  f"mask differences")
 
 
+#: K10 (Ts, grey, raw shape) off the main paths: Ts at run time, raw sizes
+#: that are no multiple of Ts, of 4 or (Bayer) of 2
+ROB_RUNTIME = ((8, False, (1001, 1502)), (6, False, (998, 1499)), (6, True, (999, 1502)),
+               (16, False, (3001, 4003)), (64, True, (1000, 1499)))
+#: K10's bounds against its plain version on the card
+ROB_MAX_ABS = 1e-6
+
+
+def robustness_inputs(device, raw_shape, Ts, rng, grey):
+    """A reference and a compared frame (blocky scene, noise, a shift and a
+    moved block), the reference's statistics at ``Ts`` (K4) and a flow with
+    border tiles pushed out of the grid: K10's arguments."""
+    h, w = raw_shape
+    scene = blocky_scene(rng, h + 8, w + 8)
+    noise = 0.01 * rng.randn(2, h, w).astype(np.float32)
+    ref = scene[:h, :w] + noise[0]
+    comp = scene[2:h + 2, 1:w + 1] + noise[1]
+    comp[h // 3:h // 2, w // 4:w // 2] += 0.3
+    config = burst_config((3000, 4000), 40)     # the robustness tuning
+    config.block_matching.tuning.tile_size = Ts
+    config.mode = "grey" if grey else "bayer"
+    std, diff = affine_curves()
+    wb = [1.9, 1.0, 1.4]
+    curves = (torch.as_tensor(std, device=device), torch.as_tensor(diff, device=device))
+    stats = init_robustness(torch.as_tensor(ref, device=device), CFA_RGGB, wb, curves,
+                            config)
+    u = 1 if grey else 2
+    flow = random_flow(rng, h // u * u, w // u * u, Ts, device)
+    tun = config.robustness.tuning
+    return (torch.as_tensor(comp, device=device), stats, flow, CFA_RGGB, wb, grey, Ts,
+            tun.Mt, tun.s1, tun.s2, tun.t)
+
+
+def check_robustness_kernel(device, raw_shape, Ts, rng, stats, timed_too, time_plain,
+                            grey=False):
+    """K10 on one frame against its plain version (the chain of torch ops
+    around K4, on the card): max|d| <= ROB_MAX_ABS and the same zero set.
+    Main-path entries (Bayer at 3000x4000) count one launch a frame."""
+    args = robustness_inputs(device, raw_shape, Ts, rng, grey)
+    r_k = cuda_robustness.robustness_fused(*args)
+    r_p = cuda_robustness.robustness_plain(*args)
+    torch.cuda.synchronize()
+    err = nan_max_abs(r_k, r_p)
+    n_zero = int(((r_k == 0) != (r_p == 0)).sum())
+    what = (f"K10 Ts={Ts} {'grey' if grey else 'Bayer'} raw {raw_shape} -> "
+            f"{tuple(r_k.shape)}: max|d| {err:.3e}, zero sets differing at {n_zero} "
+            f"(zeros {int((r_p == 0).sum())} of {r_p.numel()})")
+    if not (err <= ROB_MAX_ABS and n_zero == 0):
+        raise AssertionError(what)
+    if not timed_too:
+        log(f"  {what}")
+        return
+    comp, ref_stats, flow = args[:3]
+    tk = timed(lambda: cuda_robustness.robustness_fused(*args))
+    ms_p = timed(lambda: cuda_robustness.robustness_plain(*args), n=3,
+                 hold=False).ms if time_plain else float("nan")
+    c = 1 if grey else 3
+    # per raw pixel: 9 taps (the weight, c multiply-adds, the weight sum), c
+    # divisions, 8 c for the distance, 4 for exp, threshold and clamp, 25
+    # minima; the guide and means per window element are counted in neither
+    bnd = bound(nbytes(comp, *ref_stats, flow, r_k),
+                r_k.numel() * (9 * (2 + 2 * c) + 9 * c + 29))
+    log(f"  {what}, {time_text(tk)}, plain {plain_text(ms_p)}, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}) [{CARD}]")
+    record(stats, "K10", Ts, 0 if grey or tuple(raw_shape) != (3000, 4000) else 1, err, tk,
+           ms_p, bnd, grey=grey)
+
+
+def check_robustness_kernels(device, raw_shape, rng, stats):
+    """K10 at the main paths' Ts, Bayer and grey (timed), and at
+    :data:`ROB_RUNTIME` (untimed)."""
+    for Ts in (16, 32, 64):
+        check_robustness_kernel(device, raw_shape, Ts, rng, stats, True, Ts == MAIN_TS)
+    check_robustness_kernel(device, raw_shape, MAIN_TS, rng, stats, True, True, grey=True)
+    for Ts, grey, shape in ROB_RUNTIME:
+        check_robustness_kernel(device, shape, Ts, rng, stats, False, False, grey=grey)
+
+
 def merge_flops(iso):
     """Float operations of one frame at one HR pixel of K5/K5': 9 taps x
     (the exponent: 8 for the quadratic form, 4 for the isotropic
@@ -819,6 +922,7 @@ def phase_kernels(device, raw_shape, seed=1):
         check_merge_kernels(device, raw_shape, MAIN_TS, rng, stats, True,
                             variant=variant)
     check_runtime_instantiations(device, rng)
+    check_robustness_kernels(device, raw_shape, rng, stats)
     check_gn_levels(device, rng)
     for variant in MERGE_VARIANTS:
         for s in (1, 2, 3):
@@ -922,8 +1026,8 @@ def expected_launches(ref, config, n_cmp):
     """Launches per burst of each kernel that the path implies: per
     compared frame and level, K1 then K2 (all n_iter steps), or K3 on levels under
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
-    else after K1); one K4 per frame and two at init (none with robustness
-    off); one K5 per frame
+    else after K1); two K4 at init and one K10 per frame (none with
+    robustness off); one K5 per frame
     (scan, vmapped), or one K5' per chunk of ``tpu.merge_chunk`` frames
     (chunked), or one K6 per burst (fused), and none of them at a
     fractional scale (the gather merge, plain torch; fused runs the scan
@@ -942,12 +1046,13 @@ def expected_launches(ref, config, n_cmp):
             k2 += 1
     form = pipeline_form(config)
     fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), n_cmp))
-    k4 = n_cmp + 2 if config.robustness.enabled else 0
+    rob = bool(config.robustness.enabled)
     tiled = _use_tiled(config)
-    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": k4,
+    return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": 2 if rob else 0,
             "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
             "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
-            "K6": 1 if form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0}
+            "K6": 1 if form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0,
+            "K10": n_cmp if rob else 0}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -1426,7 +1531,8 @@ RUN_CLI = (
     "t0 = time.perf_counter()\n"
     "import json, sys, torch\n"
     "from hmsr_tpu_torch.run_handheld import main\n"
-    "from hmsr_tpu_torch.ops import cuda_ica, cuda_ingest, cuda_merge, cuda_warp\n"
+    "from hmsr_tpu_torch.ops import (cuda_ica, cuda_ingest, cuda_merge, cuda_robustness,\n"
+    "                                cuda_warp)\n"
     "t1 = time.perf_counter()\n"
     "main()\n"
     "print('TIMES', t1 - t0, time.perf_counter() - t1)\n"
@@ -1438,7 +1544,8 @@ RUN_CLI = (
     "    \"K5'\": cuda_merge.merge_burst_accumulate.launches,\n"
     "    'K6': cuda_merge.merge_fused_accumulate.launches,\n"
     "    'K7': cuda_merge.refill_groups.launches,\n"
-    "    'K8': cuda_ingest.normalize_bayer.launches, 'K9': cuda_ingest.unpack_raw.launches}))\n"
+    "    'K8': cuda_ingest.normalize_bayer.launches, 'K9': cuda_ingest.unpack_raw.launches,\n"
+    "    'K10': cuda_robustness.robustness_fused.launches}))\n"
     "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
 #: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
 #: takes the device chain)
@@ -2971,6 +3078,9 @@ def main():
             entry["per_step_bound_ms"] = per_frame("step_bound_ms")
         if key in ICA_KERNELS:
             entry["registers"] = ptxas[ICA_KERNELS[key]]["registers"]
+        if key == "K10":
+            entry.update({k: ptxas[f"{ROBUSTNESS_KERNEL}<3,16>"][k]
+                          for k in ("registers", "spill_stores", "spill_loads")})
         if key in MERGE_KERNELS:
             entry["registers"] = ptxas[merge_instance(MERGE_KERNELS[key], False,
                                                       False)]["registers"]

@@ -19,6 +19,15 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The Dodgson quadratic interpolation weight (ops/dogson.py), in the plain
+// version's order of operations: K4 and K10 weight their taps with it.
+__device__ __forceinline__ float dogson(float x) {
+  const float ax = fabsf(x);
+  if (ax <= 0.5f) return -2.0f * ax * ax + 1.0f;
+  if (ax <= 1.5f) return ax * ax - 2.5f * ax + 1.5f;
+  return 0.0f;
+}
+
 // ---------------------------------------------------------------------------
 // Block matching (K1, and the L1 prologue of K3)
 // ---------------------------------------------------------------------------

@@ -45,13 +45,6 @@
 constexpr int WARP_THREADS = 256;
 constexpr int WARP_PPT = 4;       // pixels per thread: one float4 per plane
 
-__device__ __forceinline__ float dogson(float x) {
-  const float ax = fabsf(x);
-  if (ax <= 0.5f) return -2.0f * ax * ax + 1.0f;
-  if (ax <= 1.5f) return ax * ax - 2.5f * ax + 1.5f;
-  return 0.0f;
-}
-
 // The tile-uniform values of one tile of the strip.
 struct WarpTile {
   float fx, fy;

@@ -13,7 +13,7 @@ round(s H), round(s W))`` at any scale s.
   on a TPU and ``fused`` on any other device (``_on_tpu()``); the port
   never runs on a TPU, so its ``auto`` is the JAX package's off the TPU.
 - ``scan``: a Python loop over the
-  frames — grey -> align (K1, K2, K3) -> robustness (K4) -> kernel
+  frames — grey -> align (K1, K2, K3) -> robustness (K10; K4 at init) -> kernel
   covariances -> merge into ``(num, den)`` in place: K5 where the merge is
   tiled, the gather merge (:func:`.merge.merge`, plain torch) otherwise;
   then the reference merge and the border-strip refill (one launch of K7,

@@ -68,6 +68,9 @@ SIGNATURES = {
     "hmsr_row_block_sum": [_P, _I, _I, _P, _P],
     "hmsr_normalize_bayer": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "hmsr_unpack_raw": [_P, _P, _I, _I, _P],
+    "hmsr_robustness": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _F, _F, _F, _F, _P, _P],
+    "hmsr_robustness_layout": [_I, _I, _P],
 }
 
 _lib = None
