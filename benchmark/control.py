@@ -4,9 +4,9 @@
         [--out chiprun_out/control_<cell>.jsonl]
 
 For each seed: the burst a run with that seed compares (made again from its
-seed), the plain reference on it, and the control: the same reference with
-every tensor it hands from one stage to the next rounded to bfloat16, the
-nearest precision below the float32 the configuration states (frames, grey
+seed), the configuration's plain reference on it, and the control: the same
+reference with every tensor it hands from one stage to the next rounded to
+bfloat16, the nearest precision below the float32 the configuration states (frames, grey
 images, flows, robustness maps, covariances, accumulators, image). With
 ``--program`` also one call of the program's timed entry on the same burst,
 as a run's window makes it. Prints one JSON line per seed and reading:
@@ -22,7 +22,7 @@ import time
 if __name__ == "__main__":
     sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from benchmark.run import program_config, resolve  # noqa: E402
+from benchmark.run import load_reference, program_config, resolve  # noqa: E402
 
 
 def bf16_stage(t):
@@ -38,8 +38,8 @@ def readings_for(workload, seed, device="cuda", shape=None, program=False):
 
     from benchmark.burst import make_burst, pool_seeds
     from benchmark.compare import readings
-    from benchmark.reference import reference_burst
     spec = resolve(workload)
+    reference_burst = load_reference(spec["reference"])
     conf, traffic = spec["config"], spec["traffic"]
     n_frames, h, w = shape or (conf["frames"], conf["height"], conf["width"])
     seeds = pool_seeds(seed, int(traffic["pool"]))

@@ -28,9 +28,9 @@ def ref_flops(rad, denoise):
 
 def merge_work(frames, h, w, scale, tile_size, rad_max=1, denoise=False):
     """(bytes, float operations) of merging a Bayer burst of ``frames``
-    frames of (h, w) at integer ``scale`` into the (3, scale h, scale w)
-    image."""
-    out_px = scale * h * scale * w
+    frames of (h, w) at ``scale``, fractional ones included, into the (3,
+    round(scale h), round(scale w)) image."""
+    out_px = round(scale * h) * round(scale * w)
     n_cmp = frames - 1
     ny, nx = -(-h // tile_size), -(-w // tile_size)
     cov = 3 * (h // 2) * (w // 2)

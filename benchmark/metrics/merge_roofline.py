@@ -22,6 +22,6 @@ def read(view):
     tree = view.cell["config"]["config"]
     den = tree["accumulated_robustness_denoiser"]["merge"]
     sh = view.shape
-    nbytes, flops = merge_work(sh["frames"], sh["height"], sh["width"], int(tree["scale"]),
+    nbytes, flops = merge_work(sh["frames"], sh["height"], sh["width"], float(tree["scale"]),
                                sh["tile_size"], int(den["rad_max"]), bool(den["enabled"]))
     return 100.0 * 1e3 * least_seconds(nbytes, flops) / ms

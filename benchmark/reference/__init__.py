@@ -1,6 +1,5 @@
-"""The plain reference of the benchmark: the burst pipeline in plain torch,
-independent of the program (it imports nothing of ``hmsr_tpu_torch``)."""
-
-from .pipeline import reference_burst
-
-__all__ = ["reference_burst"]
+"""The plain references of the benchmark, one module per form of the
+burst pipeline, in plain torch and independent of the program (none
+imports anything of ``hmsr_tpu_torch``). A configuration names its module
+(``benchmark.run.load_reference``): ``pipeline``, the fused form at an
+integer scale, by default; ``scan``, the scan form at any scale."""

@@ -19,6 +19,8 @@ the next (frames, grey images, flows, robustness maps, covariances,
 accumulators, image): the control passes a rounding to bfloat16 there.
 """
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -46,10 +48,16 @@ def _get(tree, dotted):
     return tree
 
 
-def check_supported(cfg):
+def check_tree(cfg):
+    """Refuse, naming the key, a configuration tree outside
+    :data:`SUPPORTED` (both forms' references share the stages it names)."""
     for key, want in SUPPORTED.items():
         if _get(cfg, key) != want:
             raise ValueError(f"the reference does not implement {key}={_get(cfg, key)!r}")
+
+
+def check_supported(cfg):
+    check_tree(cfg)
     if float(cfg["scale"]) != int(cfg["scale"]):
         raise ValueError("the reference merges at an integer scale only")
 
@@ -83,16 +91,24 @@ def _keep(x):
     return x
 
 
-def reference_burst(frames, cfg, cfa, wb, stage=None):
-    """``(image (sH, sW, 3), accumulated robustness (H, W))`` of the burst
-    ``frames`` (N, H, W) float32 on one device (frame 0 the reference) under
-    the configuration tree ``cfg`` (the configuration file's, as plain
-    dicts)."""
-    check_supported(cfg)
-    q = stage or _keep
+class Analysis(NamedTuple):
+    """What the merges take from a burst: the frames (rounded by the stage),
+    the tile size, ``frame(f)`` (a compared frame's flow, robustness map
+    and kernel covariances) and ``covs(f)`` (a frame's covariances)."""
+    frames: torch.Tensor
+    tile_size: int
+    frame: Callable
+    covs: Callable
+
+
+def analysis(frames, cfg, cfa, wb, q=_keep):
+    """The noise curves and the burst's SNR, which pick the tile size and
+    the merge constants; the reference frame's alignment and robustness
+    state; and the per-frame stages, every tensor they hand on passed
+    through ``q``."""
     dev = frames.device
     frames = q(frames.to(F32))
-    ref, comps = frames[0], frames[1:]
+    ref = frames[0]
     alpha, beta = float(cfg["noise_model"]["alpha"]), float(cfg["noise_model"]["beta"])
     std_c, diff_c = noise_curves(alpha, beta, dev)
     snr_set = snr_settings(snr_of(ref, std_c))
@@ -101,13 +117,40 @@ def reference_burst(frames, cfg, cfa, wb, stage=None):
     bm["tile_size"] = Ts
     bm["tile_sizes"] = [int(Ts * f) for f in bm["tile_size_factors"]]
     mt = dict(cfg["merging"]["tuning"], **{k: v for k, v in snr_set.items() if k != "tile_size"})
-    s = int(cfg["scale"])
     tun = cfg["robustness"]["tuning"]
     curves = (torch.as_tensor(std_c, dtype=F32, device=dev),
               torch.as_tensor(diff_c, dtype=F32, device=dev))
-
     aligner = Aligner(q(grey_fft(ref)), bm, int(cfg["ica"]["tuning"]["n_iter"]))
     stats = ref_stats(ref, cfa, wb, curves, Ts)
+
+    def covs(f):
+        return q(covariances(f, alpha, beta, mt).contiguous())
+
+    def frame(f):
+        flow = q(aligner.flow(q(grey_fft(f))))
+        return flow, q(robustness(f, stats, flow, cfa, wb, Ts, tun)), covs(f)
+
+    return Analysis(frames, Ts, frame, covs)
+
+
+def denoiser_of(cfg, acc_r):
+    """The reference merge's accumulated-robustness denoiser (acc_rob,
+    rad_max, max_multiplier, max_frame_count), or None where it is off."""
+    m = cfg["accumulated_robustness_denoiser"]["merge"]
+    return (acc_r, int(m["rad_max"]), float(m["max_multiplier"]),
+            float(m["max_frame_count"])) if m["enabled"] else None
+
+
+def reference_burst(frames, cfg, cfa, wb, stage=None):
+    """``(image (sH, sW, 3), accumulated robustness (H, W))`` of the burst
+    ``frames`` (N, H, W) float32 on one device (frame 0 the reference) under
+    the configuration tree ``cfg`` (the configuration file's, as plain
+    dicts)."""
+    check_supported(cfg)
+    q = stage or _keep
+    an = analysis(frames, cfg, cfa, wb, q)
+    ref, Ts, s = an.frames[0], an.tile_size, int(cfg["scale"])
+    dev = ref.device
     H, W = ref.shape
     acc_r = torch.zeros((H, W), dtype=F32, device=dev)
     B = Ts * s
@@ -117,17 +160,11 @@ def reference_burst(frames, cfg, cfa, wb, stage=None):
     # each frame is merged as soon as it is analysed: the fused form's sums
     # run over the frames in the same order, so holding every frame's maps
     # first would change nothing but the memory
-    for frame in comps:
-        flow = q(aligner.flow(q(grey_fft(frame))))
-        r = q(robustness(frame, stats, flow, cfa, wb, Ts, tun))
+    for frame in an.frames[1:]:
+        flow, r, covs = an.frame(frame)
         acc_r = acc_r + r
-        covs = q(covariances(frame, alpha, beta, mt).contiguous())
         merge_frame(frame, flow, covs, r, num, den, cfa, Ts, s)
-    m = cfg["accumulated_robustness_denoiser"]["merge"]
-    denoiser = (acc_r, int(m["rad_max"]), float(m["max_multiplier"]),
-                float(m["max_frame_count"])) if m["enabled"] else None
-    merge_reference(ref, q(covariances(ref, alpha, beta, mt).contiguous()), num, den, cfa, s,
-                    denoiser)
+    merge_reference(ref, an.covs(ref), num, den, cfa, s, denoiser_of(cfg, acc_r))
     num, den = q(num), q(den)
     image = q(normalize_slabs(num, den, B, H * s, W * s).permute(1, 2, 0))
     if cfg["postprocessing"]["enabled"]:

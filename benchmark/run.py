@@ -5,7 +5,8 @@
 from the root of a checkout, on a host with the cards the cell asks for.
 Everything is found by name from ``BENCHMARK.json``: the cell's
 configuration file (``benchmark/configs/<config>.json``: the burst's shape,
-the configuration tree as it is run), its traffic file
+the configuration tree as it is run, and the name of its plain reference),
+its traffic file
 (``benchmark/traffic/<traffic>.json``: where the frames live, where the
 image goes, the scene's brightness, the pool size), its limits
 (``benchmark/limits/<cell>.json``) and one reader per per-layer metric
@@ -17,10 +18,17 @@ for ``--seconds``: the pool's bursts in turn through
 ``hmsr_tpu_torch.models.process.process_arrays`` with a fresh copy of the
 configuration, each counted done when its image is ready (copied to host
 memory for host traffic); then, with ``--trace 1``, a few more bursts
-under ``torch.profiler``; then the plain reference
-(:mod:`benchmark.reference`) on the burst whose last image was kept, and
-the comparison that decides ``correct``. The last line of standard output
-is the result as one JSON object.
+under ``torch.profiler``; then the configuration's plain reference on the
+burst whose last image was kept, and the comparison that decides
+``correct``. The last line of standard output is the result as one JSON
+object.
+
+A configuration file names its reference under ``"reference"``: a module
+of ``benchmark/reference/`` that exports ``reference_burst(frames, cfg,
+cfa, wb, stage=None)`` (``pipeline``, the fused form at an integer scale,
+where the key is absent). A configuration whose form no reference
+implements brings one as a new module there, and names it: no file that
+exists changes.
 """
 
 import time
@@ -74,11 +82,18 @@ def resolve(workload):
     def mine(m):
         return workload in m.get("workloads", [workload])
 
-    return dict(cell=cell, config=load_json(conf["file"]),
+    config = load_json(conf["file"])
+    return dict(cell=cell, config=config, reference=config.get("reference", "pipeline"),
                 traffic=load_json("benchmark", "traffic", cell["traffic"] + ".json"),
                 limits=load_json("benchmark", "limits", workload + ".json"),
                 end_to_end=[m for m in bench["end_to_end"] if mine(m)],
                 per_layer=[m for m in bench["per_layer"] if mine(m)])
+
+
+def load_reference(name):
+    """``reference_burst`` of the reference module ``name``
+    (``benchmark/reference/<name>.py``)."""
+    return importlib.import_module("benchmark.reference." + name).reference_burst
 
 
 def load_reader(name):
@@ -201,9 +216,12 @@ def run(workload, seed, seconds, trace, device="cuda", shape=None, log=None):
     cfa, wb = conf["cfa"], conf["white_balance"]
     to_host = traffic["image"] == "host"
 
+    ran = []                        # the tree of the last call, as the program set it
+
     def burst(j):
-        out, debug = program.process_arrays(pool[j][0], pool[j][1], copy.deepcopy(base), cfa,
-                                            wb, device=device)
+        ran[:] = [copy.deepcopy(base)]
+        out, debug = program.process_arrays(pool[j][0], pool[j][1], ran[0], cfa, wb,
+                                            device=device)
         if to_host:
             out = out.cpu()
         if on_card:
@@ -221,6 +239,9 @@ def run(workload, seed, seconds, trace, device="cuda", shape=None, log=None):
         t = time.perf_counter()
         burst(k % len(pool))
         split[f"warm{k + 1}_s"] = time.perf_counter() - t
+    form = importlib.import_module("hmsr_tpu_torch.models.pipeline").pipeline_form(ran[0])
+    log(f"the program ran the {form} form at tile size "
+        f"{ran[0].block_matching.tuning.tile_size}, scale {ran[0].scale}")
 
     spans = Spans()
     readers = {m["name"]: load_reader(m["name"]) for m in spec["per_layer"]} if trace else {}
@@ -305,8 +326,8 @@ def run(workload, seed, seconds, trace, device="cuda", shape=None, log=None):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    result["correct"], result["checks"] = _check(conf, traffic, seeds[keep], (n_frames, h, w),
-                                                 device, prog_img, prog_acc, spec["limits"], log)
+    result["correct"], result["checks"] = _check(spec, seeds[keep], (n_frames, h, w), device,
+                                                 prog_img, prog_acc, log)
     return result
 
 
@@ -361,14 +382,16 @@ def _device(torch, on_card, peak):
             "memory_peak_bytes": int(peak)}
 
 
-def _check(conf, traffic, burst_seed, shape, device, prog_img, prog_acc, limits, log):
-    """The reference on the kept burst, made again from its seed, and the
-    comparison; prints each number beside its limit last on stderr."""
+def _check(spec, burst_seed, shape, device, prog_img, prog_acc, log):
+    """The configuration's reference on the kept burst, made again from its
+    seed, and the comparison; prints each number beside its limit last on
+    stderr."""
     import torch
 
     from benchmark.burst import make_burst
     from benchmark.compare import judge, readings
-    from benchmark.reference import reference_burst
+    conf, traffic = spec["config"], spec["traffic"]
+    reference_burst = load_reference(spec["reference"])
     t = time.perf_counter()
     n_frames, h, w = shape
     frames = make_burst(h, w, n_frames, burst_seed, device, conf["noise"]["alpha"],
@@ -378,7 +401,7 @@ def _check(conf, traffic, burst_seed, shape, device, prog_img, prog_acc, limits,
                                            conf["white_balance"])
         del frames
         values = readings(prog_img, prog_acc, ref_img, ref_acc)
-    ok, checks = judge(values, limits)
+    ok, checks = judge(values, spec["limits"])
     log(f"reference {time.perf_counter() - t:.3f} s; readings " + ", ".join(
         f"{k} {v!r}" for k, v in values.items()))
     for k, c in checks.items():

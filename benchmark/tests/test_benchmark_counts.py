@@ -41,3 +41,30 @@ def test_least_seconds_takes_the_larger():
     assert least_seconds(HBM_BYTES_PER_S, 0) == 1.0
     assert least_seconds(0, FP32_FLOPS) == 1.0
     assert least_seconds(HBM_BYTES_PER_S, 2 * FP32_FLOPS) == 2.0
+
+
+@pytest.mark.parametrize("scale, rad, den", [(2, 1, False), (3, 2, True)])
+def test_merge_work_at_integer_scales_reads_as_before(scale, rad, den):
+    # the roofline reader passes the scale as a float: the integer cells'
+    # counts stay the integers they were
+    as_int = merge_work(20, 3000, 4000, scale, 16, rad, den)
+    assert merge_work(20, 3000, 4000, float(scale), 16, rad, den) == as_int
+    out_px = scale * 3000 * scale * 4000
+    assert as_int[1] == out_px * (19 * 142 + ref_flops(rad if den else 1, den)) + 3 * out_px
+
+
+def test_merge_work_at_a_fractional_scale():
+    # 3 frames of 4x6 at x1.5: a 6x9 image, 54 output pixels; the inputs as at x2
+    nbytes, flops = merge_work(3, 4, 6, 1.5, 2)
+    inputs = 4 * (3 * 24 + 2 * 24 + 2 * 6 * 2 + 3 * 18)
+    assert nbytes == inputs + 4 * 3 * 54
+    assert flops == 54 * (2 * 142 + 142) + 3 * 54
+    # 5x7 at x1.5: the program's accumulators round half to even, 8 x 10
+    assert merge_work(3, 5, 7, 1.5, 2)[1] == 80 * 3 * 142 + 3 * 80
+
+
+def test_x1_5_cell_bound():
+    # 20 frames of 3000x4000 at x1.5: a 4500x6000 image, 76.8 GFLOP
+    nbytes, flops = merge_work(20, 3000, 4000, 1.5, 16)
+    assert flops == 27_000_000 * 2840 + 81_000_000
+    assert least_seconds(nbytes, flops) * 1e3 == pytest.approx(1.1457, abs=1e-4)

@@ -25,17 +25,20 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 #: a small burst the program's plain paths run quickly (256 px holds every
-#: pyramid level's tile at 16-px tiles, 512 px at 32-px tiles)
-SMALL = {"x2_dark_device": (4, 512, 512)}
+#: pyramid level's tile at 16-px tiles, 1024 px at 64-px tiles)
+SMALL = {"x2_dark64_device": (4, 1024, 1024)}
+#: the tile size the SNR rule gives a cell's scene, where it is not 16 px,
+#: and the form the program runs, where it is not the fused one
+TILE = {"x2_dark64_device": 64}
+FORM = {"x1_5_device": "scan"}
 
 
 def small(cell):
     return SMALL.get(cell, (4, 256, 256))
 
 
-def cpu_run(cell, seed=12345678901, **kw):
-    return R.run(cell, seed, 0.0, False, device="cpu", shape=small(cell), log=lambda *a: None,
-                 **kw)
+def cpu_run(cell, seed=12345678901, log=lambda *a: None, **kw):
+    return R.run(cell, seed, 0.0, False, device="cpu", shape=small(cell), log=log, **kw)
 
 
 def test_benchmark_json_keys_and_names():
@@ -75,6 +78,7 @@ def test_every_cell_resolves_by_name(cell):
     assert set(spec["limits"]) and all(v > 0 for v in spec["limits"].values())
     for m in spec["per_layer"]:
         assert callable(R.load_reader(m["name"]).read)
+    assert callable(R.load_reference(spec["reference"]))
     names = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2
 
@@ -113,8 +117,10 @@ def test_nothing_the_benchmark_runs_loads_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
-    mods = _loaded_after("import benchmark.reference")
-    assert not [m for m in mods if m.split(".")[0] == "hmsr_tpu_torch"]
+    refs = sorted({R.resolve(c)["reference"] for c in CELLS})
+    assert {"pipeline", "scan"} <= set(refs)
+    mods = _loaded_after("\n".join(f"import benchmark.reference.{r}" for r in refs))
+    assert not [m for m in mods if m.split(".")[0] in ("hmsr_tpu_torch", "hmsr_tpu", "jax")]
     src = os.path.join(ROOT, "benchmark", "reference")
     for f in os.listdir(src):
         if f.endswith(".py"):
@@ -131,7 +137,10 @@ def test_reference_imports_nothing_of_the_program():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_result_line_and_reference_agree_with_the_program(cell):
-    res = cpu_run(cell)
+    said = []
+    res = cpu_run(cell, log=lambda *a: said.append(" ".join(map(str, a))))
+    assert (f"the program ran the {FORM.get(cell, 'fused')} form at tile size "
+            f"{TILE.get(cell, 16)}") in "\n".join(said)
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     e2e = {m["name"] for m in R.resolve(cell)["end_to_end"]}
     assert set(res["metrics"]) == e2e
@@ -182,7 +191,7 @@ def test_profiled_bursts_stay_out_of_the_host_spans(monkeypatch):
     assert res["metrics"]["entry_self_ms"]["value"] < 1e3 * pause / 2
 
 
-@pytest.mark.parametrize("cell", ["x2_host", "x2_dark_device"])
+@pytest.mark.parametrize("cell", ["x2_host", "x2_dark64_device", "x1_5_device"])
 def test_lower_precision_control_is_not_correct(cell):
     from benchmark.compare import judge
     from benchmark.control import readings_for
@@ -214,6 +223,72 @@ def test_faults_are_not_correct(monkeypatch, kind):
     _fault(monkeypatch, kind)
     res = cpu_run("x2_host", seed=55555555555)
     assert res["correct"] is False, res["checks"]
+
+
+@pytest.mark.parametrize("kind", ["half", "altered"])
+def test_faults_are_not_correct_at_x1_5(monkeypatch, kind):
+    _fault(monkeypatch, kind)
+    res = cpu_run("x1_5_device", seed=66666666666)
+    assert res["correct"] is False, res["checks"]
+
+
+def _tree(set_=(), **tpu):
+    """The x1.5 configuration's tree with the dotted keys of ``set_`` set and
+    ``tpu`` merged into its ``tpu`` group."""
+    from benchmark.reference.pipeline import _get
+    tree = json.loads(json.dumps(R.resolve("x1_5_device")["config"]["config"]))
+    tree["tpu"].update(tpu)
+    for key, value in set_:
+        *head, last = key.split(".")
+        (_get(tree, ".".join(head)) if head else tree)[last] = value
+    return tree
+
+
+@pytest.mark.parametrize("named, set_, tpu", [
+    ("mode", [("mode", "grey")], {}),
+    ("merging.kernel", [("merging.kernel", "iso")], {}),
+    ("tpu.pipeline", [("scale", 2)], {}),                      # the fused form
+    ("tpu.merge_impl", [("scale", 2)], {"pipeline": "scan"}),  # scan with K5
+    ("tpu.pipeline", [], {"pipeline": "chunked"}),
+    ("tpu.pipeline", [], {"pipeline": "vmapped"}),
+    ("tpu.merge_impl", [], {"merge_impl": "tiled"})])
+def test_scan_reference_refuses_what_it_does_not_implement(named, set_, tpu):
+    from benchmark.reference.scan import check_supported
+    with pytest.raises(ValueError, match=re.escape(named + "=")):
+        check_supported(_tree(set_, **tpu))
+
+
+def test_scan_reference_takes_the_gather_merge_at_any_scale():
+    from benchmark.reference.scan import check_supported
+    check_supported(_tree())
+    check_supported(_tree(pipeline="scan", merge_impl="gather"))
+    check_supported(_tree([("scale", 2)], pipeline="fused", merge_impl="gather"))
+
+
+def test_a_configuration_brings_its_reference_as_new_files(tmp_path):
+    # a copy of the harness to which a configuration, its cell and its
+    # reference module are added as new files, and BENCHMARK.json's lists grow
+    subprocess.run(["cp", "-r", os.path.join(ROOT, "benchmark"), str(tmp_path / "benchmark")],
+                   check=True)
+    bench = json.loads(json.dumps(BENCH))
+    conf = R.load_json("benchmark", "configs", "burst20_12mp_x2.json")
+    conf.update(name="toy", reference="toy_ref")
+    (tmp_path / "benchmark" / "configs" / "toy.json").write_text(json.dumps(conf))
+    (tmp_path / "benchmark" / "limits" / "toy_cell.json").write_text('{"image_rel_rms": 1}')
+    (tmp_path / "benchmark" / "reference" / "toy_ref.py").write_text(
+        "def reference_burst(frames, cfg, cfa, wb, stage=None):\n"
+        "    return 'toy', cfg['scale']\n")
+    bench["configs"].append(dict(bench["configs"][0], name="toy",
+                                 file="benchmark/configs/toy.json"))
+    bench["workloads"].append(dict(bench["workloads"][0], name="toy_cell", config="toy"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = ("from benchmark import run as R\n"
+            "spec = R.resolve('toy_cell')\n"
+            "print(spec['reference'], R.load_reference(spec['reference'])(None, spec['config']"
+            "['config'], None, None), R.resolve('x2_host')['reference'])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["toy_ref", "('toy',", "2)", "pipeline"]
 
 
 def test_no_card_no_result(monkeypatch):
