@@ -142,7 +142,7 @@ and power limit:
    to the scan pipeline bit for bit, and the process layer's broadcast of
    the Monte-Carlo curves on the NCCL group; (e)
    ``graft_entry.dryrun_multichip(4)`` over gloo.
-12. the fused and vmapped forms (:func:`phase_fused_kernel` and after):
+12. the fused form (:func:`phase_fused_kernel` and after):
    (a) K6 (``csrc/merge_fused.cu``: every frame, then the reference frame,
    accumulators written once) against its plain version on the card, 19
    compared frames of 3000x4000 x2 at Ts=16, 32 and 64, the other three
@@ -165,13 +165,12 @@ and power limit:
    refill everywhere, scalar), starved pixels at depths 0-3, 28-44 and
    inside: bit for bit, with the same numbers and the pieces that took
    the slow path; (b) the
-   512x512 8-frame slice in the fused (slab and tiled) and vmapped forms,
-   card against CPU with phase 3's bounds, in Bayer, grey, iso and with the
-   denoiser, vmapped also against the card's scan, fused at x1.5 equal to
-   scan; (c) the phase 4 burst in the fused form, warm-up + 3 timed runs
-   (K6 1, K7 1, K5 0, K5' 0) and ``process_arrays`` once, peak memory against
-   ``MAX_PEAK_GIB["fused"]``; x3 (the denoiser) fused once; vmapped once,
-   against phase 4's scan image; (d) the fused form's PSNRs on the card,
+   512x512 8-frame slice in the fused form (slab and tiled refill), card
+   against CPU with phase 3's bounds, in Bayer, grey, iso and with the
+   denoiser, fused at x1.5 equal to scan; (c) the phase 4 burst in the
+   fused form, warm-up + 3 timed runs (K6 1, K7 1, K5 0, K5' 0) and
+   ``process_arrays`` once, peak memory against ``MAX_PEAK_GIB["fused"]``;
+   x3 (the denoiser) fused once; (d) the fused form's PSNRs on the card,
    each within 0.05 dB of ``ACCURACY_r05.json`` (the JAX package's fused
    record).
 13. raw ingestion (:func:`phase_normalize` and after): (a) K8
@@ -230,8 +229,8 @@ from hmsr_tpu_torch.models.alignment import (FUSED_GN_MAX_TILES, _level_tile_siz
                                              init_alignment)
 from hmsr_tpu_torch.models.ica import init_ica
 from hmsr_tpu_torch.models.kernels import estimate_kernels
-from hmsr_tpu_torch.models.pipeline import (_use_tiled, accum_shape, make_pipeline,
-                                             pipeline_form, to_grey)
+from hmsr_tpu_torch.models.pipeline import (accum_shape, make_pipeline, pipeline_form,
+                                             route_of, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.models.robustness import init_robustness
 from hmsr_tpu_torch.ops import (_build, cuda_ica, cuda_ingest, cuda_merge, cuda_probes,
@@ -1121,11 +1120,10 @@ def expected_launches(ref, config, n_cmp):
     FUSED_GN_MAX_TILES tiles (with its own L1 search on L1 radius-1 levels,
     else after K1); two K4 at init and one K10 per frame (none with
     robustness off); one K5 per frame
-    (scan, vmapped), or one K5' per chunk of ``tpu.merge_chunk`` frames
+    (scan), or one K5' per chunk of ``tpu.merge_chunk`` frames
     (chunked), or one K6 per burst (fused), and none of them where the
     merge is not tiled (a fractional scale, ``tpu.merge_impl: gather``):
-    there one K11 per frame (scan, vmapped; fused runs the scan form
-    there); one K7 per burst in every form (per slab or tile in the
+    there one K11 per frame (the route is the scan form there); one K7 per burst in every form (per slab or tile in the
     fused form, the border strips otherwise); no K8 or K9 (the burst is
     loaded). With the decimating grey the levels are those of the half-size
     grey image."""
@@ -1138,16 +1136,16 @@ def expected_launches(ref, config, n_cmp):
         else:
             k1 += 1
             k2 += 1
-    form = pipeline_form(config)
-    fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), n_cmp))
+    route = route_of(config)
+    fc = max(1, min(route.chunk, n_cmp))
     rob = bool(config.robustness.enabled)
-    tiled = _use_tiled(config)
+    scan = route.form == "scan"
     return {"K1": n_cmp * k1, "K2": n_cmp * k2, "K3": n_cmp * k3, "K4": 2 if rob else 0,
-            "K5": n_cmp if tiled and form in ("scan", "vmapped") else 0,
-            "K5'": -(-n_cmp // fc) if form == "chunked" else 0,
-            "K6": 1 if form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0,
+            "K5": n_cmp if route.tiled and scan else 0,
+            "K5'": -(-n_cmp // fc) if route.form == "chunked" else 0,
+            "K6": 1 if route.form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0,
             "K10": n_cmp if rob else 0,
-            "K11": n_cmp if not tiled and form in ("scan", "vmapped") else 0}
+            "K11": n_cmp if not route.tiled and scan else 0}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -1311,13 +1309,12 @@ def phase_dark(device, h=3000, w=4000, n_frames=20, seed=0):
 #: and bicubic 3.75; process_arrays with the Gauss denoiser 3.75, with the
 #: median 6.98 (a band's tap stack, its sorted copy and int64 indices: 4 GiB);
 #: x3 fused 7.69 (K6's padded num/den at 9024x12000, 2.6 GB, beside the
-#: stacks); vmapped 4.93 (the stacks, as chunked's, with one plane set of
-#: num/den)
+#: stacks)
 CELL_PEAK_GIB = {"grey scan": 4.5, "grey chunked": 10.0, "grey process_arrays": 4.5,
                  "x3 scan": 10.0, "x1 scan": 3.0,
                  "x1.5 scan": 4.5, "decimating scan": 5.0, "bilinear scan": 5.0,
                  "bicubic scan": 5.0, "process_arrays gauss": 5.0,
-                 "process_arrays median": 9.5, "x3 fused": 10.0, "vmapped": 6.5}
+                 "process_arrays median": 9.5, "x3 fused": 10.0}
 
 
 def check_peak(peak, what, phase=8):
@@ -2037,11 +2034,11 @@ def sharded_launches(ref, config, mesh, n_padded):
     """The launches of one rank's run of the sharded pipeline: those of its
     ``n_padded / n_frames`` frames (:func:`expected_launches`), no K5 when
     its band starts past the image."""
-    from hmsr_tpu_torch.parallel.sharded import band_geometry, banded_tiled
+    from hmsr_tpu_torch.parallel.sharded import band_geometry
     expect = expected_launches(ref, scan_config(copy.deepcopy(config)),
                                n_padded // mesh.n_frames)
     rows = band_geometry(config, tuple(ref.shape), mesh.n_space)
-    if not banded_tiled(config) or \
+    if not route_of(config).tiled or \
             mesh.space * rows >= accum_shape(config, tuple(ref.shape))[1]:
         expect["K5"] = 0
     return expect
@@ -2276,7 +2273,7 @@ def phase_sharded(device, full_image):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the fused and vmapped forms
+# phase 12: the fused form
 # ---------------------------------------------------------------------------
 
 #: (Ts, scale, variant, denoiser) of phase 12 (a): 19 compared frames of
@@ -2293,9 +2290,8 @@ FUSED_SLICE_VARIANTS = {"bayer-steerable": (False, False, False),
                         "grey-steerable": (True, False, False),
                         "bayer-iso": (False, True, False),
                         "bayer-steerable denoiser": (False, False, True)}
-#: the fused and vmapped forms: tpu.pipeline and tpu.fused_impl
-FORMS = {"fused slab": ("fused", "slab"), "fused tiled": ("fused", "tiled"),
-         "vmapped": ("vmapped", "slab")}
+#: the fused form's refills: tpu.pipeline and tpu.fused_impl
+FORMS = {"fused slab": ("fused", "slab"), "fused tiled": ("fused", "tiled")}
 
 
 def ref_merge_flops(iso, rr, denoise):
@@ -2586,11 +2582,10 @@ def form_config(config, form):
 
 
 def phase_fused_slice(device, size=512, n_frames=8, seed=2):
-    """Phase 12 (b): the slice in the fused (slab, tiled) and vmapped forms
-    on the card against the same forms on the CPU (phase 3's bounds), in
-    each of :data:`FUSED_SLICE_VARIANTS`, launch counts asserted; vmapped
-    against the card's scan within the same bounds; fused at x1.5 equal to
-    scan. Returns ``{variant: K6 launches of its fused slab run}``."""
+    """Phase 12 (b): the slice in the fused form (slab and tiled refill) on
+    the card against the same form on the CPU (phase 3's bounds), in each
+    of :data:`FUSED_SLICE_VARIANTS`, launch counts asserted; fused at x1.5
+    equal to scan. Returns ``{variant: K6 launches of its fused slab run}``."""
     frames = make_burst(size, size, n_frames, seed, device)
     std, diff = affine_curves()
     k6 = {}
@@ -2599,7 +2594,6 @@ def phase_fused_slice(device, size=512, n_frames=8, seed=2):
         base.mode = "grey" if grey else "bayer"
         base.merging.kernel = "iso" if iso else "steerable"
         base.accumulated_robustness_denoiser.enabled = denoise
-        scan = make_pipeline(base, CFA_RGGB, WB, device)(frames[0], frames[1:], std, diff)
         for form in FORMS:
             config = form_config(base, form)
             outs = {}
@@ -2616,10 +2610,6 @@ def phase_fused_slice(device, size=512, n_frames=8, seed=2):
                         k6[variant] = got["K6"]
             slice_parity(outs[device][0], outs[device][1]["flow"], outs["cpu"][0],
                          outs["cpu"][1]["flow"], f"phase 12 slice {variant} {form}")
-            if form == "vmapped":
-                slice_parity(outs[device][0], outs[device][1]["flow"], scan[0].cpu(),
-                             scan[1]["flow"].cpu(),
-                             f"phase 12 slice {variant} vmapped against scan on the card")
     config = switch_config((size, size), 40, "x1.5", debug=True)
     img_s, _ = make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:], std,
                                                            diff)
@@ -2638,12 +2628,11 @@ def phase_fused_slice(device, size=512, n_frames=8, seed=2):
 
 def phase_fused_full(frames, device, scan_image, n_runs=3):
     """Phase 12 (c): the bright burst in the fused form (pipeline alone,
-    warm-up + ``n_runs`` timed runs, then ``process_arrays`` once), x3 with
-    the denoiser in the fused form once, and the vmapped form once; launch
-    counts, shapes, finite interiors and peaks; the fused image against the
-    scan image of phase 4 (printed: they differ where the per-slab refill
-    fills starved pixels), the vmapped image against it (phase 3's
-    bounds). Returns the fused run's result."""
+    warm-up + ``n_runs`` timed runs, then ``process_arrays`` once) and x3
+    with the denoiser in the fused form once; launch counts, shapes, finite
+    interiors and peaks; the fused image against the scan image of phase 4
+    (printed: they differ where the per-slab refill fills starved pixels).
+    Returns the fused run's result."""
     h, w = frames.shape[1:]
     std, diff = affine_curves()
     snr = burst_snr(frames[0], std)
@@ -2696,22 +2685,6 @@ def phase_fused_full(frames, device, scan_image, n_runs=3):
         f"[{CARD}]")
     check_peak(peak, "x3 fused", 12)
     res.update(x3_s=dt, x3_peak_bytes=peak)
-    del image
-    config = form_config(burst_config((h, w), snr), "vmapped")
-    image, dt, got, peak = run_once(
-        lambda: make_pipeline(config, CFA_RGGB, WB, device)(frames[0], frames[1:],
-                                                            *curves),
-        lambda: expected_launches(frames[0], config, len(frames) - 1),
-        "phase 12 vmapped", (2 * h, 2 * w, 3))
-    d = (image.cpu() - scan_image).abs()[8:-8, 8:-8]
-    log(f"phase 12 vmapped (once): {dt:.4f} s; peak memory {peak / 2**30:.3f} GiB; "
-        f"launches {got}; against phase 4's scan image mean|d| {float(d.mean()):.3e}, "
-        f"max|d| {float(d.max()):.3e} [{CARD}]")
-    check_peak(peak, "vmapped", 12)
-    if not (float(d.mean()) < 1e-4 and float(d.max()) < 1e-3):
-        raise AssertionError(f"phase 12 vmapped against scan: mean|d| {float(d.mean())}, "
-                             f"max|d| {float(d.max())}")
-    res.update(vmapped_s=dt, vmapped_peak_bytes=peak, vmapped_launches=got)
     return res
 
 
@@ -3173,8 +3146,7 @@ def main():
     del frames
     log("phase 11 the multi-device path on torch.distributed (every rank on this card)")
     banded = phase_sharded(device, full_image)
-    log("phase 12 the fused and vmapped forms: K6, K7, the 512^2 slice, the full "
-        "burst, accuracy")
+    log("phase 12 the fused form: K6, K7, the 512^2 slice, the full burst, accuracy")
     fused_rows = phase_fused_kernel(device, ptxas)
     refill_groups_rows, refill_image_rows = phase_refill_kernel(device, ptxas)
     slice_k6 = phase_fused_slice(device)

@@ -6,7 +6,7 @@
 // bands of HR rows, about 600 elementwise launches a band
 // (ops/cuda_merge.py:gather_merge_plain, now its plain version and the CPU
 // path). It is the merge of every compared frame whose merge is not tiled:
-// the scan and vmapped forms at a fractional scale, tpu.merge_impl: gather at
+// the scan form at a fractional scale, tpu.merge_impl: gather at
 // an integer one, and the sharded pipeline's bands of HR rows (row_offset).
 // All four variants: Bayer or grey mode (G = 2, 1) times the steerable or the
 // isotropic kernel (ISO = 0, 1), each an instantiation

@@ -18,7 +18,7 @@
 // Replaces the normalization of the JAX package's fused merges
 // (hmsr_tpu/models/merge_slab.py:383 normalize_accum per slab,
 // hmsr_tpu/models/merge_fused.py:356 per tile: the slab and tile layouts)
-// and its border-strip normalization of the scan, chunked and vmapped
+// and the border-strip normalization of its other single-device
 // pipelines (hmsr_tpu/models/pipeline.py:289, 325, 365) and of the sharded
 // pipeline (hmsr_tpu/parallel/sharded.py:226), normalize_accum(num, den,
 // refill_border=32): the image layout. All are XLA code (no pl.pallas_call).

@@ -1,6 +1,7 @@
 """Gather merge of a non-reference frame at any scale (twin of
 :func:`hmsr_tpu.models.merge.merge`), the merge the pipeline takes where the
-merge is not tiled (a fractional scale, or ``tpu.merge_impl: gather``);
+merge is not tiled (a fractional scale, or ``tpu.merge_impl: gather``:
+:func:`.pipeline.route_of`);
 tiled merges take K5 (:mod:`.merge_tiled`).
 
 Conventions kept exactly (``hmsr_tpu/models/merge.py``, module docstring):

@@ -10,8 +10,9 @@ then the reference frame, at the padded geometry ``(c, nty*B, ntx*B)``,
 (:func:`hmsr_tpu_torch.ops.cuda_merge.refill_groups`) refills, divides and
 crops; the two differ only in the groups K7 normalizes:
 
-- :func:`merge_burst_slab` (``tpu.fused_impl: slab``, the default) refills
-  and divides each B-row slab on its own;
+- :func:`merge_burst_slab` (``tpu.fused_impl: slab``, the default; the
+  route's grouping, :func:`hmsr_tpu_torch.models.pipeline.route_of`)
+  refills and divides each B-row slab on its own;
 - :func:`merge_burst_tiled` (any other ``fused_impl``) each (B, B) tile.
 
 Either refill covers every starved pixel of its group, interior included,

@@ -3,7 +3,7 @@
 - :func:`merge_tiled` accumulates a non-reference frame (Alg. 4) through K5
   (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_accumulate`), in place, where
   the pipeline's merge is tiled (``tpu.merge_impl``, see
-  :func:`hmsr_tpu_torch.models.pipeline._use_tiled`; integer scales only);
+  :func:`hmsr_tpu_torch.models.pipeline.route_of`; integer scales only);
   otherwise the pipeline takes :func:`.merge.merge`.
 - :func:`merge_ref_tiled` accumulates the reference frame (Alg. 11) at any
   scale with torch ops (:func:`hmsr_tpu_torch.ops.cuda_merge.merge_ref_plain`,

@@ -1,5 +1,5 @@
-"""The end-to-end burst pipeline in the ``scan``, ``chunked``, ``fused`` and
-``vmapped`` forms (twin of :mod:`hmsr_tpu.models.pipeline`).
+"""The end-to-end burst pipeline in the ``scan``, ``chunked`` and ``fused``
+forms (twin of :mod:`hmsr_tpu.models.pipeline`).
 
 Reference init once (grey, pyramid, tiles, gradients, Hessians, robustness
 reference stats), then the compared frames, then the reference-frame merge
@@ -8,48 +8,39 @@ refill + divide. In grey mode (``mode: grey``) a frame is its own grey
 image and the accumulators have one plane. The accumulators are ``(c,
 round(s H), round(s W))`` at any scale s.
 
-- ``auto`` (the default): ``fused`` where the merge is tiled
-  (:func:`_use_tiled`), ``scan`` otherwise. The JAX package picks ``scan``
-  on a TPU and ``fused`` on any other device (``_on_tpu()``); the port
-  never runs on a TPU, so its ``auto`` is the JAX package's off the TPU.
+:func:`route_of` decides the route once (its docstring has the rules): the
+form, whether a compared frame's merge is tiled (K5, K5', K6 by form) or
+the gather merge (:func:`.merge.merge`, K11), the fused form's refill
+groups and the chunk length.
+
 - ``scan``: a Python loop over the
   frames — grey -> align (K1, K2, K3) -> robustness (K10; K4 at init) -> kernel
-  covariances -> merge into ``(num, den)`` in place: K5 where the merge is
-  tiled, the gather merge (:func:`.merge.merge`, K11) otherwise;
+  covariances -> merge into ``(num, den)`` in place (K5 or K11);
   then the reference merge and the border-strip refill (one launch of K7,
   :func:`normalize_image`).
 - ``chunked``: the same analysis for every frame first, its flows,
   robustness maps and covariances stacked; then one burst-fused merge (K5')
   per chunk of ``tpu.merge_chunk`` frames (default 5; the last chunk is
-  shorter). The result is bit-identical to ``scan``. Tiled merges only:
-  otherwise it raises ``ValueError``, as in the JAX package.
+  shorter). The result is bit-identical to ``scan``. Tiled merges only.
 - ``fused``: the same stacked analysis, then the whole burst and the
   reference frame in one launch of K6 and the refill per group of the
   accumulators, interior included, in one launch of K7 (:mod:`.merge_fused`:
   per B-row slab with ``tpu.fused_impl: slab``, the default; per (B, B)
-  tile with any other value). Where the merge is not tiled it runs the scan
-  form, as the JAX package does (its fused merges need the tiled geometry).
-- ``vmapped``: the stacked analysis, ``acc_r`` the sum of the stacked
-  robustness maps, then the scan form's merges frame by frame, reference
-  merge and border-strip refill: the scan image.
-
-``tpu.merge_impl`` (``auto``, ``tiled``, ``gather``; ``pallas`` is the JAX
-package's Pallas twin of ``tiled``) picks the merge as the JAX package does
-(:func:`_use_tiled`): the gather merge with ``gather`` and, under ``auto``,
-at a fractional scale; any other value at a fractional scale raises
-``ValueError``; everything else is tiled (K5, K5', K6 by form).
+  tile with any other value). Tiled merges only: otherwise the route is
+  the scan form, as in the JAX package.
 
 With ``grey_method: decimating`` (Bayer mode) the alignment runs on the
 half-resolution grey image and each flow is moved to the raw tile grid
 (:func:`flow_to_raw_grid`) before robustness and merge.
 
 Everything runs on the one ``device`` given to :func:`make_pipeline`; there
-is no fallback to another device or to another implementation: an unknown
-form raises ``NotImplementedError``. The stages of the loop
-(:func:`init_reference`, :func:`frame_step`, :func:`merge_reference`,
-:func:`normalize_image`) are shared with the sharded pipeline
-(:mod:`hmsr_tpu_torch.parallel.sharded`).
+is no fallback to another device or to another implementation. The route
+and the stages of the loop (:func:`init_reference`, :func:`frame_step`,
+:func:`merge_reference`, :func:`normalize_image`) are shared with the
+sharded pipeline (:mod:`hmsr_tpu_torch.parallel.sharded`).
 """
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,57 +58,71 @@ from .merge_tiled import (check_merge_config, integer_scale, merge_ref_tiled,
                           merge_tiled, merge_variant)
 from .robustness import compute_robustness, init_robustness
 
-PIPELINES = ("auto", "scan", "chunked", "fused", "vmapped")
+PIPELINES = ("auto", "scan", "chunked", "fused")
 
 
-def _use_tiled(config):
-    """Whether the merge is tiled (the JAX package's ``_use_tiled``):
-    ``tpu.merge_impl`` "gather" is not, nor "auto" (the default) at a
-    fractional scale; any other value at a fractional scale raises
-    ``ValueError``; everything else is."""
-    impl = config.get("tpu", {}).get("merge_impl", "auto")
-    if impl == "gather" or (impl == "auto" and not integer_scale(config)):
-        return False
-    if not integer_scale(config):
-        raise ValueError("tiled merge requires an integer scale")
-    return True
+class Route(NamedTuple):
+    """The route of a configuration (:func:`route_of`): ``form`` the form
+    that runs the burst ("scan", "chunked" or "fused"); ``tiled`` whether a
+    compared frame's merge is tiled (else the gather merge); ``slab``
+    whether the fused form refills per B-row slab (else per (B, B) tile);
+    ``chunk`` the chunked form's frames per launch of K5'; ``refusal`` the
+    error the single-device pipeline raises for the configuration, or
+    None."""
+    form: str
+    tiled: bool
+    slab: bool
+    chunk: int
+    refusal: Optional[Exception]
 
 
-def check_supported(config):
-    """Raise ``NotImplementedError`` for an unknown pipeline form, and
-    ``ValueError`` for a tiled ``tpu.merge_impl`` at a fractional scale and
-    for the chunked form where the merge is not tiled."""
-    mode = config.get("tpu", {}).get("pipeline", "auto")
-    if mode not in PIPELINES:
-        raise NotImplementedError(f"tpu.pipeline={mode!r}: the forms are "
-                                  f"{', '.join(PIPELINES)}")
-    if not _use_tiled(config) and mode == "chunked":
-        raise ValueError("tpu.pipeline=chunked requires an integer scale "
-                         "(tiled merge geometry)")
+def route_of(config):
+    """The :class:`Route` of ``config``, the one reader of ``tpu.pipeline``,
+    ``tpu.merge_impl``, ``tpu.fused_impl`` and ``tpu.merge_chunk``; the
+    JAX package's choices off the TPU:
+
+    - the merge is tiled at an integer scale unless ``tpu.merge_impl`` is
+      "gather" (``integer_scale and impl != "gather"``);
+    - ``auto`` (the default) and ``fused`` take the fused form where the
+      merge is tiled and the scan form otherwise (``fused = pipe_mode ==
+      "fused" and _use_tiled(config)``);
+    - the single-device pipeline refuses an unknown form
+      (``NotImplementedError``), then a tiled ``tpu.merge_impl`` (any but
+      "auto" and "gather") at a fractional scale, then the chunked form
+      where the merge is not tiled (``ValueError``). The sharded pipeline
+      runs none of the forms and raises none of these: at a fractional
+      scale it takes the gather merge whatever the impl, as the JAX
+      package's does."""
+    tpu = config.get("tpu", {})
+    form, impl = tpu.get("pipeline", "auto"), tpu.get("merge_impl", "auto")
+    tiled = integer_scale(config) and impl != "gather"
+    refusal = None
+    if form not in PIPELINES:
+        refusal = NotImplementedError(
+            f"tpu.pipeline={form!r}: the forms are {', '.join(PIPELINES)} (the scan "
+            f"form gives the image of the JAX package's vmapped form)")
+    elif impl not in ("auto", "gather") and not tiled:
+        refusal = ValueError("tiled merge requires an integer scale")
+    elif form == "chunked" and not tiled:
+        refusal = ValueError("tpu.pipeline=chunked requires an integer scale "
+                             "(tiled merge geometry)")
+    if form in ("auto", "fused"):
+        form = "fused" if tiled else "scan"
+    return Route(form, tiled, tpu.get("fused_impl", "slab") == "slab",
+                 int(tpu.get("merge_chunk", 5)), refusal)
 
 
 def pipeline_form(config):
-    """The form :func:`run_pipeline` runs: ``tpu.pipeline``, with "auto"
-    the fused form where the merge is tiled and the scan form otherwise (the
-    JAX package's choice off the TPU), and "fused" the scan form where the
-    merge is not tiled (``fused = pipe_mode == "fused" and
-    _use_tiled(config)``)."""
-    mode = config.get("tpu", {}).get("pipeline", "auto")
-    if mode == "auto":
-        mode = "fused"
-    if mode == "fused" and not _use_tiled(config):
-        return "scan"
-    return mode
+    """The form :func:`run_pipeline` runs (:func:`route_of`)."""
+    return route_of(config).form
 
 
 def select_merge(config):
     """The merge of a compared frame: K5 (:func:`.merge_tiled.merge_tiled`)
-    where the merge is tiled (:func:`_use_tiled`; the JAX package's
-    ``merge_tiled`` and ``merge_pallas``), the gather merge
-    (:func:`.merge.merge`, K11) otherwise. It returns this module's
-    ``merge`` attribute as it stands at the call, so that a wrapper put
-    there by name (the benchmark's ``stage_ms.merge``) sees every frame."""
-    return merge_tiled if _use_tiled(config) else merge
+    where the route's merge is tiled, the gather merge (:func:`.merge.merge`,
+    K11) otherwise. It returns this module's attribute as it stands at the
+    call, so that a wrapper put there by name sees every frame."""
+    return merge_tiled if route_of(config).tiled else merge
 
 
 def accum_shape(config, raw_shape):
@@ -215,16 +220,16 @@ def normalize_image(num, den):
 
 
 def _merge_burst_chunked(comp_imgs, flows, covs_stack, rmaps, num, den,
-                         cfa_pattern, config):
+                         cfa_pattern, config, chunk):
     """Accumulate the stacked frames into (num, den) in place through K5',
-    one launch per chunk of ``tpu.merge_chunk`` (default 5) frames; the last
-    chunk is shorter (the JAX package pads it with zero-robustness frames,
-    which add exact zeros). Returns the pair."""
+    one launch per ``chunk`` frames (the route's); the last chunk is
+    shorter (the JAX package pads it with zero-robustness frames, which add
+    exact zeros). Returns the pair."""
     s = check_merge_config(config)
     grey, iso = merge_variant(config)
     ts = int(config.block_matching.tuning.tile_size)
     f0 = comp_imgs.shape[0]
-    fc = max(1, min(int(config.get("tpu", {}).get("merge_chunk", 5)), f0))
+    fc = max(1, min(chunk, f0))
     with span("merge"):
         for c0 in range(0, f0, fc):
             c1 = min(c0 + fc, f0)
@@ -242,11 +247,12 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     ``robustness.save_mask`` (or the accumulated-robustness denoiser)
     ``accumulated_robustness`` (H, W), the sum of the frames' robustness
     maps, which the denoiser hands to the reference-frame merge."""
-    check_supported(config)
+    route = route_of(config)
+    if route.refusal is not None:
+        raise route.refusal
     device = resolve_device(device)
     debug_mode = bool(config.debug)
-    form = pipeline_form(config)
-    stacked = form != "scan"            # every frame analysed before any merge
+    scan = route.form == "scan"         # else every frame analysed before any merge
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     accumulate_r = denoise or bool(config.robustness.save_mask)
 
@@ -257,25 +263,25 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     align_state, ref_stats = init_reference(ref_img, curves, config, cfa_pattern,
                                             white_balance)
 
-    merge_frame = select_merge(config)
     acc_r = torch.zeros(ref_img.shape, dtype=DEFAULT_FLOAT, device=device) \
         if accumulate_r else None
-    if form != "fused":
+    if route.form != "fused":
         num = torch.zeros(accum_shape(config, ref_img.shape), dtype=DEFAULT_FLOAT,
                           device=device)
         den = torch.zeros_like(num)
+    merge_frame = select_merge(config)
     flows, rmaps, covs_list = [], [], []
     for frame in comp_imgs:
         flow, r, covs = frame_step(frame, align_state, ref_stats, config,
                                    cfa_pattern, white_balance)
-        if acc_r is not None and form != "vmapped":
+        if acc_r is not None:
             acc_r = acc_r + r
-        if stacked:
-            covs_list.append(covs)
-        else:
+        if scan:
             with span("merge"):
                 merge_frame(frame, flow, covs, r, num, den, cfa_pattern, config)
-        if debug_mode or stacked:
+        else:
+            covs_list.append(covs)
+        if debug_mode or not scan:
             flows.append(flow)
             rmaps.append(r)
     # the stacks replace the per-frame lists, so that no frame's maps are
@@ -285,22 +291,15 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
     del flows, rmaps
     covs_stack = torch.stack(covs_list) if covs_list else None
     del covs_list
-    if form == "vmapped" and acc_r is not None and r_stack is not None:
-        acc_r = r_stack.sum(0)          # a reduction, as JAX's jnp.sum
-    if form == "chunked" and flow_stack is not None:
-        _merge_burst_chunked(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack,
-                             num, den, cfa_pattern, config)
-    elif form == "vmapped" and flow_stack is not None:
-        for f in range(len(comp_imgs)):
-            with span("merge"):
-                merge_frame(comp_imgs[f], flow_stack[f], covs_stack[f], r_stack[f], num,
-                            den, cfa_pattern, config)
-    if form == "fused":
+    if route.form == "fused":
         with span("kernels"):
             ref_covs = estimate_kernels(ref_img, config)
         image = merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack,
-                                  r_stack, cfa_pattern, config, acc_r)
+                                  r_stack, cfa_pattern, config, route.slab, acc_r)
     else:
+        if route.form == "chunked" and flow_stack is not None:
+            _merge_burst_chunked(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack,
+                                 num, den, cfa_pattern, config, route.chunk)
         del covs_stack
         merge_reference(ref_img, num, den, cfa_pattern, config, acc_r)
         image = normalize_image(num, den)
@@ -315,12 +314,12 @@ def run_pipeline(ref_img, comp_imgs, std_curve, diff_curve, config,
 
 
 def merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack, r_stack,
-                      cfa_pattern, config, acc_r=None):
+                      cfa_pattern, config, slab, acc_r=None):
     """The fused form's merge: the stacked frames and the reference frame
     (with its covariances ``ref_covs``) through K6, then the refill per
-    B-row slab (``tpu.fused_impl: slab``, the default) or per (B, B) tile
-    (any other value); the ``(round(s H), round(s W), c)`` image. A burst
-    of the reference alone (no stacks) merges no compared frame."""
+    B-row slab (``slab``, the route's) or per (B, B) tile; the ``(round(s
+    H), round(s W), c)`` image. A burst of the reference alone (no stacks)
+    merges no compared frame."""
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     if flow_stack is None:
         H, W = ref_img.shape
@@ -329,7 +328,6 @@ def merge_burst_fused(ref_img, ref_covs, comp_imgs, flow_stack, covs_stack, r_st
         r_stack = ref_img.new_zeros((0, H, W))
     if covs_stack is None:
         covs_stack = ref_covs.new_zeros((0, *ref_covs.shape))
-    slab = config.get("tpu", {}).get("fused_impl", "slab") == "slab"
     fused_impl = merge_burst_slab if slab else merge_burst_tiled
     with span("merge"):
         image = fused_impl(comp_imgs.contiguous(), flow_stack, covs_stack, r_stack, ref_img,
@@ -345,10 +343,12 @@ def make_pipeline(config, cfa_pattern, white_balance, device="cuda"):
     The returned callable takes ``(ref_img, comp_imgs, std_curve,
     diff_curve)`` (numpy arrays or tensors) and returns ``(image, debug)``.
     Raises at once if ``device`` is CUDA and this host has none, or if the
-    configuration lies outside the ported slice.
+    route refuses the configuration (:func:`route_of`).
     """
     device = resolve_device(device)
-    check_supported(config)
+    refusal = route_of(config).refusal
+    if refusal is not None:
+        raise refusal
     cfa = np.asarray(cfa_pattern)
     wb = [float(x) for x in white_balance]
 

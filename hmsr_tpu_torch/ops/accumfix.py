@@ -5,8 +5,8 @@ Pixels whose accumulated weight is below ``STARVED_DEN`` are re-normalized
 from the 5x5 neighbourhood sums of well-fed ``(num, den)``, twice. With
 ``refill_border=B`` the refill runs only on the four B-wide border strips,
 each extracted with an 8-px margin, which is exact against the full-image
-refill where starvation is a border phenomenon (the scan, chunked and
-vmapped pipelines). The fused pipeline's merges normalize per group
+refill where starvation is a border phenomenon (the scan and chunked
+pipelines). The fused pipeline's merges normalize per group
 instead (:func:`normalize_groups`): each B-row slab
 (``models/merge_slab.py``) or each (B, B) tile (``models/merge_fused.py``)
 gets the full refill, interior included, with zero context past its edges.

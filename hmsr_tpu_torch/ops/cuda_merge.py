@@ -738,7 +738,7 @@ def refill_groups(num, den, B, out_h, out_w, tiles=False):
 
 
 def refill_image(num, den, refill_border):
-    """K7 on the whole accumulators: the scan, chunked, vmapped and sharded
+    """K7 on the whole accumulators: the scan, chunked and sharded
     forms' refill and divide, ``normalize_accum(num, den,
     refill_border=refill_border)`` (its plain twin) bit for bit.
     ``num``/``den``: ``(c, H, W)`` float32 on one device, rows contiguous,

@@ -11,9 +11,10 @@ takes
 - the ``f``-th contiguous block of the (padded) frames: it aligns, weighs
   and merges them into partial accumulators, which are summed over the
   frames group (``all_reduce``; one per burst);
-- HR band ``sp`` of the accumulators. The merge is routed as the JAX
-  package routes it (``hmsr_tpu/parallel/sharded.py:82-88``): K5's banded
-  branch at an integer scale unless ``tpu.merge_impl`` is "gather", into
+- HR band ``sp`` of the accumulators. The merge is the route's
+  (:func:`~hmsr_tpu_torch.models.pipeline.route_of`, as the JAX package
+  routes it, ``hmsr_tpu/parallel/sharded.py:82-88``): K5's banded branch
+  where the merge is tiled, into
   ``nb`` whole tile rows of ``B = Ts*s`` HR rows from global row ``sp * nb
   * B``, ``nb = ceil(ceil(out_h / B) / n_space)`` (the Pallas path's band
   geometry); the gather merge otherwise, into ``out_h / n_space`` rows
@@ -41,10 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.merge import merge
-from ..models.merge_tiled import integer_scale, merge_tiled
 from ..models.pipeline import (_as_tensor, accum_shape, frame_step, init_reference,
-                               merge_reference, normalize_image)
+                               merge_reference, normalize_image, route_of, select_merge)
 from ..utils.timing import span
 from ..utils.types import DEFAULT_FLOAT, resolve_device
 
@@ -118,21 +117,13 @@ def pad_frames(comp_imgs, n_shards):
     return comp_imgs, weights
 
 
-def banded_tiled(config):
-    """Whether the sharded pipeline merges through K5's banded branch: at
-    an integer scale unless ``tpu.merge_impl`` is "gather" (the JAX
-    package's ``merge_tiled if (integer_scale and impl != "gather")``)."""
-    impl = config.get("tpu", {}).get("merge_impl", "auto")
-    return integer_scale(config) and impl != "gather"
-
-
 def band_geometry(config, raw_shape, n_space):
     """``rows``: the HR rows of each of the ``n_space`` bands (band ``sp``
-    starts at global row ``sp * rows``): whole tile rows for K5
-    (:func:`banded_tiled`), ``out_h / n_space`` for the gather merge
+    starts at global row ``sp * rows``): whole tile rows where the route's
+    merge is tiled (K5), ``out_h / n_space`` for the gather merge
     (``ValueError`` unless it divides, the JAX package's rule)."""
     _, out_h, _ = accum_shape(config, raw_shape)
-    if banded_tiled(config):
+    if route_of(config).tiled:
         B = int(config.block_matching.tuning.tile_size) * int(config.scale)
         return -(-(-(-out_h // B)) // n_space) * B
     if out_h % n_space:
@@ -176,7 +167,7 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, device=None)
     denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     accumulate_r = denoise or bool(config.robustness.save_mask)
     debug_mode = bool(config.debug)
-    merge_frame = merge_tiled if banded_tiled(config) else merge
+    merge_frame = select_merge(config)
 
     def fn(ref_img, comps, weights, std_curve, diff_curve):
         ref_img = _as_tensor(ref_img, device)

@@ -8,8 +8,8 @@ Run from the root of a checkout, on a host with one CUDA card and ``nvcc``::
 
 It makes the ``bench.py`` headline burst on the card
 (:mod:`hmsr_tpu_torch.synthetic`), runs the pipeline (``tpu.pipeline``
-``--pipeline``: scan, chunked with chunks of 5, fused (K6 and K7's refill
-per slab) or vmapped; ``--mode grey``: ``bench.py``'s grey cell, the frames
+``--pipeline``: scan, chunked with chunks of 5, or fused (K6 and K7's refill
+per slab); ``--mode grey``: ``bench.py``'s grey cell, the frames
 taken as grey images; ``--scale``: the output scale, with ``bench.py``'s
 mutations of its x3 and x1 cells at 3 and 1, :data:`SCALE_CELLS`) once to
 warm up, :data:`RUNS` times unprofiled with the program's span recorder on
@@ -140,7 +140,7 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=4000)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused", "vmapped"),
+    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused"),
                     default="scan")
     ap.add_argument("--mode", choices=("bayer", "grey"), default="bayer")
     ap.add_argument("--scale", type=float, default=2.0)

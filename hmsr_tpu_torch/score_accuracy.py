@@ -109,7 +109,7 @@ def score_robustness(size=OCCLUSION_SIZE, frames=OCCLUSION_FRAMES, device="cuda"
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused", "vmapped"),
+    ap.add_argument("--pipeline", choices=("scan", "chunked", "fused"),
                     default="scan")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)

@@ -245,11 +245,12 @@ def test_chip_smoke_fails_without_cuda():
 PROCESS_CHANGES = ["mesh"]
 
 
-@pytest.mark.parametrize("change", ["unknown_pipeline", "chunked_fractional"]
+@pytest.mark.parametrize("change", ["unknown_pipeline", "vmapped", "chunked_fractional"]
                          + PROCESS_CHANGES)
 def test_unported_configurations_raise(change):
     """An unknown ``tpu.pipeline`` form raises ``NotImplementedError`` in
-    ``make_pipeline`` (every form of the JAX package is ported); the chunked
+    ``make_pipeline``, the JAX package's ``vmapped`` among them with a
+    message that names ``scan``, whose image it is; the chunked
     form at a fractional scale raises ``ValueError``, as in the JAX package;
     a mesh, which only the process layer reads, raises ``RuntimeError`` in
     ``process_arrays`` before any work when no ``torch.distributed``
@@ -257,12 +258,15 @@ def test_unported_configurations_raise(change):
     config = small_config(128)
     if change == "unknown_pipeline":
         config.tpu.pipeline = "pipelined"
+    elif change == "vmapped":
+        config.tpu.pipeline = "vmapped"
     elif change == "chunked_fractional":
         config.tpu.pipeline = "chunked"
         config.scale = 1.5
     elif change == "mesh":
         config.tpu.mesh = [2, 1]
     expected = {"mesh": (RuntimeError, "torch.distributed"),
+                "vmapped": (NotImplementedError, "'vmapped'.*the scan form gives"),
                 "chunked_fractional": (ValueError, "integer scale")}.get(
                     change, (NotImplementedError, "pipelined"))
     with pytest.raises(expected[0], match=expected[1]):

@@ -11,6 +11,8 @@ E2E criteria (tools/verify_e2e_parity.py): flow max|d| < 1e-2, image
 mean|d| < 1e-4 and max|d| < 1e-3 on the interior [8:-8, 8:-8].
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -31,7 +33,8 @@ from hmsr_tpu.parallel import pad_frames as j_pad_frames  # noqa: E402
 from hmsr_tpu_torch import configs  # noqa: E402
 from hmsr_tpu_torch.models import pipeline  # noqa: E402
 from hmsr_tpu_torch.ops import resize  # noqa: E402
-from hmsr_tpu_torch.parallel import spawn_ranks  # noqa: E402
+from hmsr_tpu_torch.parallel import (Mesh, make_sharded_pipeline, sharded,  # noqa: E402
+                                     spawn_ranks)
 
 
 def _config(cfg):
@@ -298,3 +301,31 @@ def test_sharded_merge_impl_route_against_jax(route_burst, sharded_routes, route
     assert tuple(got.shape) == (out, out, 3)
     d = np.abs(n(got) - np.asarray(want))[8:-8, 8:-8]
     assert d.mean() < 1e-4 and d.max() < 1e-3, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("impl", MERGE_IMPLS)
+@pytest.mark.parametrize("scale", [2, 1.5])
+def test_sharded_pipeline_takes_the_route(monkeypatch, scale, impl):
+    """The sharded pipeline's merge and band geometry are the route's
+    (``pipeline.route_of``), with no rule of its own: K5 into whole tile
+    rows where the merge is tiled (x2 unless ``gather``), the gather merge
+    into ``out_h / n_space`` rows otherwise. At x1.5 the route refuses a
+    tiled impl to the single-device pipeline, and the sharded pipeline
+    takes the gather merge there, as the JAX package's does. No burst
+    runs: the merge is the one the pipeline closes over."""
+    config = route_config(scale, impl, "scan")
+    route = pipeline.route_of(config)
+    tiled = scale == 2 and impl != "gather"
+    assert route.tiled == tiled
+    assert (route.refusal is not None) == (scale == 1.5 and impl in ("tiled", "pallas"))
+    picks = {"merge_tiled": object(), "merge": object()}
+    for name, fn in picks.items():
+        monkeypatch.setattr(pipeline, name, fn)
+    mesh = Mesh(1, 2, 0, 0, None, None, (0,), (0, 1), None)
+    fn = make_sharded_pipeline(config, DEFAULT_CFA, WB, mesh, "cpu")
+    assert inspect.getclosurevars(fn).nonlocals["merge_frame"] is \
+        picks["merge_tiled" if tiled else "merge"]
+    # 80 raw rows: 160 HR rows at x2 are 5 tile rows of B = 32, 3 a band
+    B = int(config.block_matching.tuning.tile_size) * 2
+    assert sharded.band_geometry(config, (80, 64), 2) == \
+        (3 * B if tiled else round(scale * 80) // 2)

@@ -133,7 +133,6 @@ def test_one_burst_shares_an_id_and_the_next_burst_another():
     ("scan", N_FRAMES - 1 + 2),        # per frame, the reference, the refill
     ("chunked", 1 + 2),                # the chunks' loop, the reference, the refill
     ("fused", 1),                      # K6 and K7 in one
-    ("vmapped", N_FRAMES - 1 + 2),
 ])
 def test_process_arrays_records_each_stage(pipeline, merges):
     timing.enable()
