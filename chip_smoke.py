@@ -11,12 +11,13 @@ and power limit:
 
 0. require CUDA; print the card (``nvidia-smi`` name and power limit) and
    the torch / CUDA versions;
-1. build the twelve kernels (K1 block matching, K2 ICA Gauss-Newton steps,
+1. build the thirteen kernels (K1 block matching, K2 ICA Gauss-Newton steps,
    K3 fused ICA, K4 upscale-warp, K5 merge, K5' burst-fused merge, K6 the
    fused form's burst-and-reference merge, K7 its refill and divide, K8 the
    raw burst's normalization, K9 RAW10/RAW12 unpacking, K10 a compared
    frame's robustness map, K11 a compared frame's gather merge at any
-   scale) and the probes P1 and P2 from ``hmsr_tpu_torch/csrc``;
+   scale, K12 a frame's merge-kernel covariances) and the probes P1 and P2
+   from ``hmsr_tpu_torch/csrc``;
    print the build seconds, each kernel's registers, static shared memory
    and spills from the build's kept ``-Xptxas -v`` report (per
    instantiation of a templated kernel: K5 and K5' have one per variant,
@@ -25,7 +26,7 @@ and power limit:
    per (ts, r, metric), K2 and K3 per ts, K4 per (Ts, u, c), K5/K5' per
    (Ts, scale, variant) and K10 per (Ts, mode) (the library's against the
    wrapper's), and the static SASS instructions of every
-   instantiation of K1-K11 (``cuobjdump -sass`` of the library), in all
+   instantiation of K1-K12 (``cuobjdump -sass`` of the library), in all
    and in each one's longest loop (K5''s frame loop);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes (20x12 MP burst, x2): the alignment
@@ -49,6 +50,14 @@ and power limit:
    set), at the x1.5 cell's shapes (3000x4000 to 4500x6000, Ts=16) in every
    variant (timed, with its ptxas registers and spills), at x2.5 and x2 and
    into a band of HR rows (untimed);
+   K12 (``estimate_kernel<BAYER,LAW>``) against its plain version on the
+   card, bit for bit (the same NaN set), on 3000x4000 frames with a flat
+   patch, axis-aligned step edges and values below the VST's zero, in Bayer
+   and grey mode under both selection laws at D_tr 1 and 1.12 (its float32
+   reciprocal is inexact); the linear law (the cells') at D_tr 1 timed per
+   frame in both modes beside the plain chain and the byte bound, with each
+   instantiation's ptxas registers and spills; untimed at odd sizes that
+   are no multiple of the 32x64 grey tile;
    then K5 and K5' in every variant at
    scales 1, 2 and 3, Ts=16, 32 and 64, on 1024x1024 frames; max|d|, the
    kernel's device time alone (:func:`hmsr_tpu_torch.measure.timed`: back
@@ -233,8 +242,8 @@ from hmsr_tpu_torch.models.pipeline import (accum_shape, make_pipeline, pipeline
                                              route_of, to_grey)
 from hmsr_tpu_torch.models.process import process, process_arrays, use_device_finishing
 from hmsr_tpu_torch.models.robustness import init_robustness
-from hmsr_tpu_torch.ops import (_build, cuda_ica, cuda_ingest, cuda_merge, cuda_probes,
-                                 cuda_robustness, cuda_warp)
+from hmsr_tpu_torch.ops import (_build, cuda_estimate, cuda_ica, cuda_ingest, cuda_merge,
+                                 cuda_probes, cuda_robustness, cuda_warp)
 from hmsr_tpu_torch.ops.accumfix import REFILL_BORDER, STARVED_DEN, normalize_accum
 from hmsr_tpu_torch.ops.pyramid import build_gaussian_pyramid
 from hmsr_tpu_torch.synthetic import (ALPHA, BETA, BENCH_CELLS, CFA_RGGB, WB,
@@ -279,6 +288,10 @@ KERNELS = {  # key: name, wrapper, source, TPU kernel it replaces
     "K11": ("K11 gather merge of one compared frame at any scale",
             cuda_merge.gather_merge_accumulate, "hmsr_tpu_torch/csrc/merge_gather.cu",
             "hmsr_tpu/models/merge.py:85"),
+    # replaces XLA code of the JAX package (kernel estimation, no pallas_call)
+    "K12": ("K12 merge-kernel covariances of one frame (VST, grey, gradients, structure "
+            "tensor, eigenvectors, stretch and shrink)", cuda_estimate.estimate_kernels_fused,
+            "hmsr_tpu_torch/csrc/estimate.cu", "hmsr_tpu/models/kernels.py:52"),
 }
 #: probes of the JAX package's TPU tools, not on the path (their launch
 #: counts stay out of the path's counts)
@@ -294,11 +307,11 @@ CHUNK = 5               # tpu.merge_chunk of the chunked path
 #: frames already loaded (a DNG folder's load adds one K8)
 BRIGHT_LAUNCHES = {
     "scan": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 19, "K5'": 0, "K6": 0,
-             "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0},
+             "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0, "K12": 20},
     "chunked": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 0, "K5'": 4, "K6": 0,
-                "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0},
+                "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0, "K12": 20},
     "fused": {"K1": 76, "K2": 38, "K3": 38, "K4": 2, "K5": 0, "K5'": 0, "K6": 1,
-              "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0}}
+              "K7": 1, "K8": 0, "K9": 0, "K10": 19, "K11": 0, "K12": 20}}
 #: peak device memory allowed per process_arrays run (measured 4.30 GiB scan,
 #: 6.00 GiB chunked on an H100 80GB HBM3: the stacks of the chunked analysis
 #: hold 19 robustness maps and covariance sets, ~1.6 GB); fused, also per
@@ -314,6 +327,7 @@ FUSED_KERNEL = "merge_fused_kernel"     # K6, merge_fused_kernel<G,ISO>
 REFILL_KERNEL = "refill_kernel"         # K7
 ROBUSTNESS_KERNEL = "robustness_kernel"  # K10, robustness_kernel<C,TS>
 GATHER_KERNEL = "gather_merge_kernel"   # K11, gather_merge_kernel<G,ISO>
+ESTIMATE_KERNEL = "estimate_kernel"     # K12, estimate_kernel<BAYER,LAW>
 INGEST_KERNELS = ("normalize_kernel", "unpack_kernel")   # K8, K9 (unpack_kernel<BITS>)
 #: the variants of K5 and K5' (grey, iso), the main path's first
 MERGE_VARIANTS = {"bayer-steerable": (False, False), "grey-steerable": (True, False),
@@ -427,7 +441,7 @@ def phase_build(raw_shape):
                 f"{g['smem_bytes']} B dynamic shared memory")
     bases = {"bm_kernel", "ica_steps_kernel", "ica_fused_kernel", "warp_kernel",
              *MERGE_KERNELS.values(), FUSED_KERNEL, REFILL_KERNEL, *INGEST_KERNELS,
-             ROBUSTNESS_KERNEL, GATHER_KERNEL}
+             ROBUSTNESS_KERNEL, GATHER_KERNEL, ESTIMATE_KERNEL}
     for name, (n, loop) in sorted(sass_counts(bases).items()):
         log(f"  SASS {name}: {n} static instructions, {loop} in its longest loop")
     return report
@@ -995,6 +1009,86 @@ def check_gather_kernels(device, raw_shape, rng, stats):
                         row_offset=rows, rows=rows)
 
 
+#: K12 off the cells' sizes: odd, no multiple of the 32x64 grey tile
+EST_ODD = ((3001, 4003), (1001, 1503))
+#: float32 operations of K12 per grey pixel: the VST (6 a raw pixel; 4 raw
+#: pixels and the quad's 4 adds in Bayer mode), the gradient and its
+#: products (13), the window sums (9), the eigenvectors (30), k1 and k2
+#: (18), the covariances (15)
+EST_FLOPS = {True: 4 * 6 + 4 + 85, False: 6 + 85}
+
+
+def estimate_frame(rng, shape):
+    """A blocky noisy frame with a flat patch (tr = 0, the identity case),
+    vertical and horizontal step edges (v1 == 0, v0 == 0) and a patch below
+    the VST's zero (its clamp), near its top-left corner."""
+    h, w = shape
+    img = np.clip(blocky_scene(rng, h, w, 4) + 0.02 * rng.randn(h, w), 0, 1)
+    img[0:200, 0:300] = 0.4
+    img[200:400, 0:300] = np.kron(rng.rand(1, 50) > 0.5, np.ones((200, 6)))
+    img[400:600, 0:300] = np.kron(rng.rand(25, 1) > 0.5, np.ones((8, 300)))
+    img[600:700, 0:300] = -0.5 * rng.rand(100, 300)
+    return img.astype(np.float32)
+
+
+def check_estimate_kernel(device, img, mode, law, snr, stats, timed_too):
+    """K12 on one frame against :func:`~hmsr_tpu_torch.ops.cuda_estimate.
+    estimate_kernels_plain` on the card, bit for bit (the same NaN set).
+    Timed: the kernel alone, its host time, the plain chain and the bound,
+    with the instantiation's ptxas registers and spills; the entry counts
+    for the main path in Bayer mode (one launch a frame)."""
+    config = burst_config((3000, 4000), snr)
+    config.mode = mode
+    config.merging.selection_law = law
+    x = torch.as_tensor(img, device=device)
+    got = cuda_estimate.estimate_kernels_fused(x, config)
+    want = cuda_estimate.estimate_kernels_plain(x, config)
+    torch.cuda.synchronize()
+    err = nan_max_abs(got, want)
+    fin = torch.isfinite(want)
+    tag = (f"{mode} {law} D_tr={config.merging.tuning.D_tr:.4g} {tuple(x.shape)} -> "
+           f"{tuple(got.shape)}")
+    if not (got.shape == want.shape and torch.equal(got[fin], want[fin])):
+        bad = torch.nonzero(got != want)[:5].tolist()
+        raise AssertionError(f"K12 {tag}: not bit for bit its plain version, max|d| "
+                             f"{err:.3e}, first at {bad}")
+    if not timed_too:
+        log(f"  K12 {tag}: max|d| {err:.3e} (bit for bit) [{CARD}]")
+        return
+    bayer = mode == "bayer"
+    tk = timed(lambda: cuda_estimate.estimate_kernels_fused(x, config))
+    ms_p = timed(lambda: cuda_estimate.estimate_kernels_plain(x, config), n=3,
+                 hold=False).ms
+    bnd = bound(nbytes(x, got), got[0].numel() * EST_FLOPS[bayer])
+    inst = f"{ESTIMATE_KERNEL}<{int(bayer)},{cuda_estimate.SELECTION_LAWS.index(law)}>"
+    with open(_build.ptxas_log) as f:
+        regs = _build.ptxas_report(f.read())[inst]
+    log(f"  K12 {tag}: max|d| {err:.3e} (bit for bit), {time_text(tk)}, plain "
+        f"{plain_text(ms_p)}, bound {bnd[0]:.4f} ms ({bnd[1]}), {tk.ms / bnd[0]:.2f}x the "
+        f"bound; {inst} {regs['registers']} registers, spills {regs['spill_stores']}/"
+        f"{regs['spill_loads']} B [{CARD}]")
+    record(stats, "K12", MAIN_TS, 1 if bayer else 0, err, tk, ms_p, bnd, mode=mode,
+           registers=regs["registers"], spill_stores=regs["spill_stores"],
+           spill_loads=regs["spill_loads"])
+
+
+def check_estimate_kernels(device, raw_shape, rng, stats):
+    """K12 at the cells' frame size in Bayer and grey mode under both laws at
+    D_tr 1 (SNR 40; the linear law, the cells', timed) and 1.12 (SNR 18),
+    then at :data:`EST_ODD` (untimed)."""
+    img = estimate_frame(rng, raw_shape)
+    for mode in ("bayer", "grey"):
+        for law in ("linear", "hard_threshold"):
+            for snr in (40, 18):
+                check_estimate_kernel(device, img, mode, law, snr, stats,
+                                      law == "linear" and snr == 40)
+    for shape in EST_ODD:
+        img = estimate_frame(rng, shape)
+        for mode in ("bayer", "grey"):
+            for law in ("linear", "hard_threshold"):
+                check_estimate_kernel(device, img, mode, law, 18, stats, False)
+
+
 def phase_kernels(device, raw_shape, seed=1):
     """Phase 2. Returns per-kernel lists of dicts: the configuration's tile
     size ``Ts``, ``per_frame`` (launches per frame of the main path at that
@@ -1015,6 +1109,7 @@ def phase_kernels(device, raw_shape, seed=1):
     check_runtime_instantiations(device, rng)
     check_robustness_kernels(device, raw_shape, rng, stats)
     check_gather_kernels(device, raw_shape, rng, stats)
+    check_estimate_kernels(device, raw_shape, rng, stats)
     check_gn_levels(device, rng)
     for variant in MERGE_VARIANTS:
         for s in (1, 2, 3):
@@ -1124,9 +1219,9 @@ def expected_launches(ref, config, n_cmp):
     (chunked), or one K6 per burst (fused), and none of them where the
     merge is not tiled (a fractional scale, ``tpu.merge_impl: gather``):
     there one K11 per frame (the route is the scan form there); one K7 per burst in every form (per slab or tile in the
-    fused form, the border strips otherwise); no K8 or K9 (the burst is
-    loaded). With the decimating grey the levels are those of the half-size
-    grey image."""
+    fused form, the border strips otherwise); one K12 per frame, the
+    reference's too; no K8 or K9 (the burst is loaded). With the
+    decimating grey the levels are those of the half-size grey image."""
     state = init_alignment(to_grey(ref, config), config)
     k1 = k2 = k3 = 0
     for tiles, (_, _, radius, metric) in zip(state.tiles, _level_tile_sizes(config)):
@@ -1145,7 +1240,7 @@ def expected_launches(ref, config, n_cmp):
             "K5'": -(-n_cmp // fc) if route.form == "chunked" else 0,
             "K6": 1 if route.form == "fused" else 0, "K7": 1, "K8": 0, "K9": 0,
             "K10": n_cmp if rob else 0,
-            "K11": n_cmp if not route.tiled and scan else 0}
+            "K11": n_cmp if not route.tiled and scan else 0, "K12": n_cmp + 1}
 
 
 def run_timed(fn, n_runs, expect_fn, what, device):
@@ -1678,8 +1773,8 @@ RUN_CLI = (
     "t0 = time.perf_counter()\n"
     "import json, sys, torch\n"
     "from hmsr_tpu_torch.run_handheld import main\n"
-    "from hmsr_tpu_torch.ops import (cuda_ica, cuda_ingest, cuda_merge, cuda_robustness,\n"
-    "                                cuda_warp)\n"
+    "from hmsr_tpu_torch.ops import (cuda_estimate, cuda_ica, cuda_ingest, cuda_merge,\n"
+    "                                cuda_robustness, cuda_warp)\n"
     "t1 = time.perf_counter()\n"
     "main()\n"
     "print('TIMES', t1 - t0, time.perf_counter() - t1)\n"
@@ -1693,7 +1788,8 @@ RUN_CLI = (
     "    'K7': cuda_merge.refill_groups.launches,\n"
     "    'K8': cuda_ingest.normalize_bayer.launches, 'K9': cuda_ingest.unpack_raw.launches,\n"
     "    'K10': cuda_robustness.robustness_fused.launches,\n"
-    "    'K11': cuda_merge.gather_merge_accumulate.launches}))\n"
+    "    'K11': cuda_merge.gather_merge_accumulate.launches,\n"
+    "    'K12': cuda_estimate.estimate_kernels_fused.launches}))\n"
     "print('PEAK', torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0)\n")
 #: the finishing routes of phase 10 (c): (tpu.finishing_impl, tonemapping,
 #: takes the device chain)
@@ -3204,6 +3300,13 @@ def main():
         if key == "K10":
             entry.update({k: ptxas[f"{ROBUSTNESS_KERNEL}<3,16>"][k]
                           for k in ("registers", "spill_stores", "spill_loads")})
+        if key == "K12":
+            # per mode at 3000x4000 (the linear law); launches: the bright burst's
+            entry.update({k: main_path[0][k]
+                          for k in ("registers", "spill_stores", "spill_loads")})
+            entry["modes"] = {e["mode"]: {k: e[k] for k in (
+                "ms", "host_us", "plain_ms", "bound_ms", "bound_by", "registers",
+                "spill_stores", "spill_loads")} for e in stats[key]}
         if key == "K11":
             # per variant at the x1.5 cell's shapes; launches: the x1.5 burst's
             entry.update({k: main_path[0][k]

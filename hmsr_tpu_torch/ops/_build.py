@@ -74,6 +74,7 @@ SIGNATURES = {
     "hmsr_gather_merge": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                           _F, _F, _I, _I, _I, _P],
     "hmsr_gather_positions": [_P, _I, _F, _F, _I, _I, _P, _P, _P, _P],
+    "hmsr_estimate": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
 }
 
 _lib = None

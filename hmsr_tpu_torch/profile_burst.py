@@ -53,7 +53,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .measure import card
 from .models import pipeline as P
-from .ops import cuda_ica, cuda_merge, cuda_robustness, cuda_warp
+from .ops import cuda_estimate, cuda_ica, cuda_merge, cuda_robustness, cuda_warp
 from .synthetic import (BENCH_CELLS, CFA_RGGB, WB, affine_curves, burst_config,
                         burst_snr, make_burst)
 from .utils import timing
@@ -73,7 +73,8 @@ HAND_WRITTEN = {"bm_kernel": cuda_ica.block_match, "ica_steps_kernel": cuda_ica.
                 "merge_fused_kernel": cuda_merge.merge_fused_accumulate,
                 "refill_kernel": cuda_merge.refill_groups,
                 "robustness_kernel": cuda_robustness.robustness_fused,
-                "gather_merge_kernel": cuda_merge.gather_merge_accumulate}
+                "gather_merge_kernel": cuda_merge.gather_merge_accumulate,
+                "estimate_kernel": cuda_estimate.estimate_kernels_fused}
 
 
 def kernel_base_name(key):

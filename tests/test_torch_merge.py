@@ -1,6 +1,9 @@
 """The port's kernel estimation and merges (K5, K5') against the JAX package.
 
-``estimate_kernels`` and the merges' num/den within 1e-5 relative; K5''s
+``estimate_kernels`` and the merges' num/den within 1e-5 relative;
+estimation's plain version (K12's, the CPU path) in Bayer and grey mode under
+both selection laws, and K12's wrapper: CPU tensors take the plain version
+and launch nothing, and what the kernel cannot take is refused. K5''s
 plain version against the JAX burst-fused Pallas merge within 1e-6, and
 against K5's plain version exactly. The merges in every variant: Bayer or
 grey mode, steerable or isotropic kernel, and the reference merge with the
@@ -20,7 +23,7 @@ from hmsr_tpu.io.synthetic import DEFAULT_CFA, make_synthetic_burst  # noqa: E40
 from hmsr_tpu.models import kernels as j_kernels  # noqa: E402
 from hmsr_tpu.models import merge_tiled as j_merge  # noqa: E402
 from hmsr_tpu_torch.models import kernels, merge_tiled  # noqa: E402
-from hmsr_tpu_torch.ops import cuda_merge  # noqa: E402
+from hmsr_tpu_torch.ops import cuda_estimate, cuda_merge  # noqa: E402
 
 H, W = 64, 96
 
@@ -39,6 +42,91 @@ def test_estimate_kernels(frames, law):
     got = kernels.estimate_kernels(t(comp), config)
     want = j_kernels.estimate_kernels(jnp.asarray(comp), config)
     assert rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("law", ["linear", "hard_threshold"])
+@pytest.mark.parametrize("mode", ["bayer", "grey"])
+def test_estimate_kernels_plain(frames, mode, law):
+    """K12's plain version (the CPU path) against the JAX package in both
+    modes under both selection laws, on a frame with a flat patch (the
+    identity case), step edges along each axis (the axis-aligned cases) and
+    values that drive the VST below zero (its clamp). Grey mode holds against
+    JAX evaluated op by op: compiled, XLA moves a near-isotropic covariance
+    by up to 0.17 (``test_torch_pipeline.test_e2e_against_jax_scan``)."""
+    _, comp = frames
+    comp = comp.copy()
+    comp[:8, :16] = 0.4
+    comp[8:24, :16] = np.repeat(np.arange(16) % 3 == 0, 16).reshape(16, 16).T
+    comp[24:32, :16] = np.repeat(np.arange(8) % 2, 16).reshape(8, 16)
+    comp[32:40, :16] = -0.5
+    config = small_config(128)
+    config.mode = mode
+    config.merging.selection_law = law
+    got = cuda_estimate.estimate_kernels_plain(t(comp), config)
+    with jax.disable_jit(mode == "grey"):
+        want = j_kernels.estimate_kernels(jnp.asarray(comp), config)
+    assert got.shape == want.shape == ((3, H // 2, W // 2) if mode == "bayer" else (3, H, W))
+    assert rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["bayer", "grey"])
+def test_estimate_kernels_cpu_takes_plain(frames, mode):
+    """On CPU tensors ``estimate_kernels`` is its plain version, bit for
+    bit, also at an odd size (Bayer mode crops the last row and column),
+    and K12 is not launched."""
+    _, comp = frames
+    config = small_config(128)
+    config.mode = mode
+    cuda_estimate.estimate_kernels_fused.launches = 0
+    for img in (t(comp), t(comp[:-1, :-3])):
+        got = kernels.estimate_kernels(img, config)
+        assert torch.equal(got, cuda_estimate.estimate_kernels_plain(img, config))
+    assert cuda_estimate.estimate_kernels_fused.launches == 0
+    assert kernel_counts() == (0,) * 8
+
+
+ESTIMATE_REFUSALS = {
+    "float64": lambda img: img.double(),
+    "3-D": lambda img: img[None],
+    "meta-device": lambda img: torch.empty(img.shape, device="meta"),
+    "one-raw-row": lambda img: img[:1],          # odd and too small: no whole quad
+    "one-raw-column": lambda img: img[:, :1],
+    "empty": lambda img: img[:0],
+}
+
+
+@pytest.mark.parametrize("case", list(ESTIMATE_REFUSALS))
+def test_estimate_kernels_refusals(frames, case):
+    """K12's wrapper refuses what it cannot launch, on every device: a frame
+    that is not float32, not 2-D, on a device with no kernel, or with no
+    whole grey pixel (a Bayer frame of one raw row or column; an empty
+    one)."""
+    _, comp = frames
+    config = small_config(128)
+    img = ESTIMATE_REFUSALS[case](t(comp))
+    with pytest.raises(ValueError):
+        cuda_estimate.estimate_kernels_fused(img, config)
+    if case == "empty":
+        config.mode = "grey"
+        with pytest.raises(ValueError):
+            cuda_estimate.estimate_kernels_fused(img, config)
+    assert cuda_estimate.estimate_kernels_fused.launches == 0
+
+
+@pytest.mark.parametrize("key,value", [("law", "quadratic"), ("alpha", 0.0)])
+def test_estimate_kernels_refuses_config(frames, key, value):
+    """An unknown selection law and a non-positive alpha (the VST is not
+    defined) are refused before any work, as the plain version refuses
+    them."""
+    _, comp = frames
+    config = small_config(128)
+    if key == "law":
+        config.merging.selection_law = value
+    else:
+        config.noise_model.alpha = value
+    for fn in (cuda_estimate.estimate_kernels_fused, cuda_estimate.estimate_kernels_plain):
+        with pytest.raises(ValueError):
+            fn(t(comp), config)
 
 
 #: the merge variants (mode, merging.kernel) the Pallas kernel carries
